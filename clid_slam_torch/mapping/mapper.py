@@ -2,18 +2,26 @@
 of clid_slam_tpu/mapping/mapper.py, candidate-cached path).
 
 Two bodies, as in the JAX streaming step:
-- the fast body (``max_outer=1``, ``dup_independent``), used on tracked
-  frames: one replay batch per frame, its kNN geometry frozen in a cache,
-  the expanded [bs, K, F] features trained as independent parameters by
-  the fused kernel (``ops/map_loop.py``), then the per-point mean delta
-  written back once;
+- the single-batch body (``max_outer=1``), used on tracked frames: one
+  replay batch per frame, its kNN geometry frozen in a cache. With
+  ``dup_independent`` the expanded [bs, K, F] features are trained as
+  independent parameters and the per-point mean delta is written back
+  once: by the fused kernel (``ops/map_loop.py``) where the config is
+  eligible, else by the autograd loop with a ``RuntimeWarning`` that names
+  the reasons. Without ``dup_independent`` the autograd loop trains the
+  compact [W, F] work slab itself;
 - the general multi-batch body, used on frame 0: ``ceil(iters / R)``
   batches of R Adam steps each on a compact working slab, with torch
   autograd, Adam moments persisting across batches in full-capacity slabs.
+
+The work-slab gathers go through ``ops/gather.py:gather_rows`` (the
+hand-written row-gather kernel on the card): once per autograd step in
+``_SlabGatherSorted`` and twice per single-batch call.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import List, NamedTuple, Optional
 
 import torch
@@ -21,6 +29,7 @@ import torch
 from ..models import decoder as dec
 from ..models import neural_map as nm
 from ..mapping.pool import ReplayPool, sample_batch_indices, split_rows
+from ..ops.gather import gather_rows
 from ..ops.map_loop import map_loop
 from ..ops.voxel import grid_coords, voxel_hash
 
@@ -126,7 +135,7 @@ class _SlabGatherSorted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, slab, idx2d, order, run_lengths):
         ctx.save_for_backward(order, run_lengths)
-        return slab[idx2d]
+        return gather_rows(slab, idx2d.reshape(-1)).reshape(idx2d.shape + slab.shape[1:])
 
     @staticmethod
     def backward(ctx, g):
@@ -192,11 +201,15 @@ def make_mapping_fn(
             "the port's mapper covers the geometric weighted_first f32 path; "
             "color, semantics, decode-then-weight and bf16 are later work"
         )
-    if max_outer not in (0, 1) or (max_outer == 1 and not dup_independent):
+    if max_outer not in (0, 1):
         raise NotImplementedError(
-            "the port has the general body (max_outer=0) and the fast "
-            "dup_independent body (max_outer=1); the static single-batch "
-            "body for non-dup-independent configs is later work"
+            "the port has the general body (max_outer=0) and the single-batch "
+            "body (max_outer=1)"
+        )
+    if feature_dim % 4 != 0:
+        raise NotImplementedError(
+            f"feature_dim={feature_dim}: the port's row-gather kernel takes rows "
+            "of a multiple of 4 floats; other widths are not ported yet"
         )
     bd = max(1, bs // gradient_decimation)
     dec_step = gradient_decimation
@@ -278,7 +291,9 @@ def make_mapping_fn(
             enc_tapw=torch.sum(enc_tap * w_tap[..., None], dim=2),
         )
 
-    def make_loss_fn(c: BatchCache):
+    def make_loss_fn(c: BatchCache, expanded: bool = False):
+        """``loss_fn(params, mlp)``; ``params`` is the [W, F] work slab or,
+        with ``expanded``, the [bs, k, F] per-reference features."""
         sdf_loss_of = make_sdf_loss(
             c.label, c.weight, c.bvalid, loss_type=loss_type, sigma=sigma,
             loss_weight_on=loss_weight_on,
@@ -286,7 +301,9 @@ def make_mapping_fn(
         eik_den = torch.clamp(torch.sum(c.vd), min=1.0)
 
         def loss_fn(work, mlp_):
-            f = _SlabGatherSorted.apply(work, c.local_idx, c.order, c.run_lengths)
+            f = work if expanded else _SlabGatherSorted.apply(
+                work, c.local_idx, c.order, c.run_lengths
+            )
             if layer_norm:
                 f = nm.layer_norm_feats(f)
             f = torch.where(c.valid[..., None], f, torch.zeros_like(f))
@@ -320,42 +337,103 @@ def make_mapping_fn(
         tap_w_sum = torch.sum(c.w_tap, dim=0) * itf
         return nm.accumulate_certainty(st, tap_idx_d, tap_w_sum, None)
 
-    def fast_body(map_state, mlp, pool, travel_dist, cur_ts, window,
-                  iter_count, mlp_lr_scale, generator, batch_draws):
-        reasons = pallas_ineligible_reasons(
-            color_on=color_on, sem_on=sem_on, weighted_first=weighted_first,
-            mlp_bf16=mlp_bf16, mlp_leaky=mlp_leaky, loss_type=loss_type,
-            feature_dim=feature_dim, n_hidden=len(mlp.weights),
+    def adam_steps(loss_fn, work, mw, vw, mlp_ps, mlp_m, mlp_v, t_base, n_steps, mlp_lr):
+        """``n_steps`` autograd Adam steps on ``work`` and the MLP leaves,
+        step numbers continuing from ``t_base``. Returns the new
+        (work, mw, vw, mlp_ps, mlp_m, mlp_v, [sdf_loss, eik_loss])."""
+        nh = (len(mlp_ps) - 2) // 2
+        losses = torch.zeros(2, device=work.device)
+        work = work.detach()  # a new leaf: the caller's tensor stays grad-free
+        for i in range(n_steps):
+            with torch.enable_grad():
+                leaves = [work.requires_grad_(True)] + [
+                    p.requires_grad_(True) for p in mlp_ps
+                ]
+                m_params = dec.MLPParams(
+                    leaves[1 : 1 + nh], leaves[1 + nh : 1 + 2 * nh],
+                    leaves[-2], leaves[-1],
+                )
+                loss, sdf_l, eik_l = loss_fn(leaves[0], m_params)
+                grads = torch.autograd.grad(loss, leaves)
+            t = float(t_base + i + 1)
+            upd, mw, vw = _adam_update(grads[0], mw, vw, t, lr, adam_eps)
+            work = work.detach() + upd
+            new_ps, new_m, new_v = [], [], []
+            for p, g, m, v in zip(mlp_ps, grads[1:], mlp_m, mlp_v):
+                u, m, v = _adam_update(g, m, v, t, mlp_lr, adam_eps)
+                new_ps.append(p.detach() + u)
+                new_m.append(m)
+                new_v.append(v)
+            mlp_ps, mlp_m, mlp_v = new_ps, new_m, new_v
+            losses = torch.stack([sdf_l.detach(), eik_l.detach()])
+        return work, mw, vw, mlp_ps, mlp_m, mlp_v, losses
+
+    def mlp_of(mlp_ps):
+        nh = (len(mlp_ps) - 2) // 2
+        return dec.MLPParams(
+            mlp_ps[:nh], mlp_ps[nh : 2 * nh], mlp_ps[2 * nh], mlp_ps[2 * nh + 1]
         )
-        if reasons:
-            raise NotImplementedError(
-                "the port's fast mapping body runs only the fused kernel; this "
-                f"config is ineligible ({', '.join(reasons)})"
-            )
+
+    def autograd_loop(loss_fn, params0, mlp, n_steps, mlp_lr):
+        """A fresh Adam (zero moments) for ``n_steps`` steps on ``params0``
+        and the MLP. Returns (params, mlp, losses)."""
+        mlp_ps = [t.detach().clone() for t in mlp.tensors()]
+        zeros = [torch.zeros_like(t) for t in mlp_ps]
+        params, _, _, mlp_ps, _, _, losses = adam_steps(
+            loss_fn, params0, torch.zeros_like(params0), torch.zeros_like(params0),
+            mlp_ps, zeros, list(zeros), 0, n_steps, mlp_lr,
+        )
+        return params, mlp_of(mlp_ps), losses
+
+    def single_batch_body(map_state, mlp, pool, travel_dist, cur_ts, window,
+                          iter_count, mlp_lr_scale, generator, batch_draws):
         dev = pool.data.device
         cap = nm.map_capacity(map_state)
         draws = batch_draws[0] if batch_draws is not None else None
         c = build_cache(map_state, pool, travel_dist, cur_ts, window, generator, draws)
-        work0 = map_state.geo_feats[c.src_rows]  # [W,F]
-        f0 = work0[c.local_idx].contiguous()  # [bs,k,F]
-        counts = c.run_lengths[:, None].to(torch.float32)
+        work0 = gather_rows(map_state.geo_feats, c.src_rows)  # [W,F]
         n_iters = torch.as_tensor(iter_count, device=dev).to(torch.int32)
         inner_n = torch.clamp(n_iters, max=R)
-        wsel = torch.abs(c.weight) * c.bvalid if loss_weight_on else c.bvalid
-        f_new, mlp_new, losses = map_loop(
-            f0, c.w0.contiguous(), c.encw0.contiguous(),
-            torch.sigmoid(c.label / sigma).contiguous(), wsel.contiguous(),
-            c.w_tap.contiguous(), c.enc_tapw.contiguous(), c.vd.contiguous(), mlp,
-            inner_n, R, lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32),
-            1.0 / torch.clamp(torch.sum(c.bvalid), min=1.0),
-            1.0 / torch.clamp(torch.sum(c.vd), min=1.0),
-            dec_step=dec_step, sdf_scale=sdf_scale, sigma=sigma, lr=lr,
-            adam_eps=adam_eps, weight_e=weight_e, num_grad_eps=num_grad_eps,
-            layer_norm=layer_norm,
-        )
-        rows = work0 + _sorted_scatter_add(f_new - f0, c.order, c.run_lengths) / torch.clamp(
-            counts, min=1.0
-        )
+        mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
+        if not dup_independent:
+            # the autograd loop reads its step count on the host, once
+            rows, mlp_new, losses = autograd_loop(
+                make_loss_fn(c), work0, mlp, int(inner_n), mlp_lr
+            )
+        else:
+            f0 = gather_rows(work0, c.local_idx.reshape(-1)).reshape(bs, knn_k, -1)
+            reasons = pallas_ineligible_reasons(
+                color_on=color_on, sem_on=sem_on, weighted_first=weighted_first,
+                mlp_bf16=mlp_bf16, mlp_leaky=mlp_leaky, loss_type=loss_type,
+                feature_dim=feature_dim, n_hidden=len(mlp.weights),
+            )
+            if reasons:
+                warnings.warn(
+                    "fused mapping kernel disabled for this config "
+                    f"({', '.join(reasons)}); running the autograd loop",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+                f_new, mlp_new, losses = autograd_loop(
+                    make_loss_fn(c, expanded=True), f0, mlp, int(inner_n), mlp_lr
+                )
+            else:
+                wsel = torch.abs(c.weight) * c.bvalid if loss_weight_on else c.bvalid
+                f_new, mlp_new, losses = map_loop(
+                    f0, c.w0.contiguous(), c.encw0.contiguous(),
+                    torch.sigmoid(c.label / sigma).contiguous(), wsel.contiguous(),
+                    c.w_tap.contiguous(), c.enc_tapw.contiguous(), c.vd.contiguous(), mlp,
+                    inner_n, R, mlp_lr,
+                    1.0 / torch.clamp(torch.sum(c.bvalid), min=1.0),
+                    1.0 / torch.clamp(torch.sum(c.vd), min=1.0),
+                    dec_step=dec_step, sdf_scale=sdf_scale, sigma=sigma, lr=lr,
+                    adam_eps=adam_eps, weight_e=weight_e, num_grad_eps=num_grad_eps,
+                    layer_norm=layer_norm,
+                )
+            counts = c.run_lengths[:, None].to(torch.float32)
+            rows = work0 + _sorted_scatter_add(
+                f_new - f0, c.order, c.run_lengths
+            ) / torch.clamp(counts, min=1.0)
         feats = map_state.geo_feats.clone()
         feats[c.src_rows] = rows  # duplicates only at the sentinel row
         feats[cap] = 0.0
@@ -374,44 +452,23 @@ def make_mapping_fn(
         mlp_ps = [t.detach().clone() for t in mlp.tensors()]
         mlp_m = [torch.zeros_like(t) for t in mlp_ps]
         mlp_v = [torch.zeros_like(t) for t in mlp_ps]
-        nh = len(mlp.weights)
         mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
         st = map_state
         losses = torch.zeros(2, device=dev)
         for o in range(n_outer):
             draws = batch_draws[o] if batch_draws is not None else None
             c = build_cache(st, pool, travel_dist, cur_ts, window, generator, draws)
-            work = feats[c.src_rows]
+            work = gather_rows(feats, c.src_rows)
             if o == 0:  # moments start at zero in every mapping call
                 mw, vw = torch.zeros_like(work), torch.zeros_like(work)
             else:
-                mw, vw = m_slab[c.src_rows], v_slab[c.src_rows]
-            loss_fn = make_loss_fn(c)
+                mw, vw = gather_rows(m_slab, c.src_rows), gather_rows(v_slab, c.src_rows)
             inner_n = min(R, n_iters - o * R)
-            for i in range(inner_n):
-                with torch.enable_grad():
-                    leaves = [work.requires_grad_(True)] + [
-                        p.requires_grad_(True) for p in mlp_ps
-                    ]
-                    m_params = dec.MLPParams(
-                        leaves[1 : 1 + nh], leaves[1 + nh : 1 + 2 * nh],
-                        leaves[-2], leaves[-1],
-                    )
-                    loss, sdf_l, eik_l = loss_fn(leaves[0], m_params)
-                    grads = torch.autograd.grad(loss, leaves)
-                t = float(o * R + i + 1)
-                upd, mw, vw = _adam_update(grads[0], mw, vw, t, lr, adam_eps)
-                work = work.detach() + upd
-                new_ps = []
-                for j, (p, g) in enumerate(zip(mlp_ps, grads[1:])):
-                    u, mlp_m[j], mlp_v[j] = _adam_update(
-                        g, mlp_m[j], mlp_v[j], t, mlp_lr, adam_eps
-                    )
-                    new_ps.append(p.detach() + u)
-                mlp_ps = new_ps
-                losses = torch.stack([sdf_l.detach(), eik_l.detach()])
+            work, mw, vw, mlp_ps, mlp_m, mlp_v, losses = adam_steps(
+                make_loss_fn(c), work, mw, vw, mlp_ps, mlp_m, mlp_v, o * R, inner_n, mlp_lr
+            )
             # write back (duplicate src_rows only at the zeroed sentinel)
-            feats[c.src_rows] = work.detach()
+            feats[c.src_rows] = work
             feats[cap] = 0.0
             if o + 1 < n_outer:
                 m_slab[c.src_rows] = mw
@@ -419,12 +476,9 @@ def make_mapping_fn(
                 m_slab[cap] = 0.0
                 v_slab[cap] = 0.0
             st = accumulate_cert(st, c, inner_n)
-        mlp_out = dec.MLPParams(
-            mlp_ps[:nh], mlp_ps[nh : 2 * nh], mlp_ps[2 * nh], mlp_ps[2 * nh + 1]
-        )
-        return st._replace(geo_feats=feats), mlp_out, losses
+        return st._replace(geo_feats=feats), mlp_of(mlp_ps), losses
 
-    body = fast_body if max_outer == 1 else general_body
+    body = single_batch_body if max_outer == 1 else general_body
 
     def mapping(
         map_state: nm.NeuralMapState,

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..ops.scatter import scatter_set
+from ..ops.scatter import ordered_cumsum, scatter_set
 
 _X, _SDF, _W, _TS, _SEM = 0, 3, 4, 5, 6
 BASE_COLS = 8
@@ -92,7 +92,7 @@ def append_slots(pool: ReplayPool, mask: torch.Tensor, uniform: Optional[torch.T
     slot = pool.size.long() + offs
     if uniform is not None:
         e = -torch.log(torch.clamp(uniform, 1e-12, 1.0))
-        s = torch.cumsum(e, 0)
+        s = ordered_cumsum(e)
         slot_evict = torch.clamp((s[:m] / s[m] * p).to(torch.int64), max=p - 1)
         slot = torch.where(fits, slot, slot_evict)
     slot = torch.where(mask, slot, torch.full_like(slot, p))
@@ -124,6 +124,8 @@ def append_samples(
     m = coords.shape[0]
     if uniform is None and generator is not None:
         uniform = torch.rand(m + 1, generator=generator, device=coords.device)
+    elif uniform is not None:
+        uniform = torch.as_tensor(uniform, device=coords.device)
     slot, fits, n_valid = append_slots(pool, mask, uniform)
 
     ts = torch.full_like(sdf, 1.0) * torch.as_tensor(

@@ -19,7 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.scatter import scatter_set, segment_add
+from ..ops.scatter import compact_indices, scatter_set, segment_add
+from ..utils import lie
 from ..ops.voxel import (
     grid_coords,
     neighbor_hash_soa,
@@ -356,3 +357,115 @@ def query_certainty_own_cell(
     valid = idx >= 0
     cert = state.certainty[torch.where(valid, idx, torch.full_like(idx, cap))]
     return torch.where(valid, cert, torch.zeros_like(cert))
+
+
+# ------------------------------------------------------------------- prune
+
+
+def _rebuild_hash(positions, ts_create, count, travel_dist, resolution, hsize):
+    """Hash table and mirror over the first ``count`` points. Two live
+    points in one bucket resolve last-wins, as in ``insert_points``."""
+    c1 = positions.shape[0]
+    dev = positions.device
+    h = voxel_hash(grid_coords(positions, resolution), hsize)
+    live = torch.arange(c1, device=dev) < count
+    hash_table = torch.full((hsize,), -1, dtype=torch.int32, device=dev)
+    scatter_set(hash_table, h, torch.arange(c1, dtype=torch.int32, device=dev), live)
+    travel_at_create = travel_dist[ts_create.clamp(min=0).long()]
+    hash_mirror = torch.full((hsize, 4), _EMPTY_POS, dtype=torch.float32, device=dev)
+    scatter_set(
+        hash_mirror, h, torch.cat([positions, travel_at_create[:, None]], dim=1), live
+    )
+    return hash_table, hash_mirror
+
+
+def prune_and_rehash(
+    state: NeuralMapState,
+    prune_certainty_thre,
+    travel_dist: torch.Tensor,
+    cur_ts,
+    diff_travel_dist_local,
+    resolution,
+    global_prune: bool = False,
+) -> NeuralMapState:
+    """Drop inactive low-certainty points (all low-certainty points with
+    ``global_prune``), compact the survivors to the front in order and
+    rebuild the hash. No host read.
+
+    The compaction is a gather: output slot j reads the j-th kept row, so
+    no scatter order can matter. Freed rows keep the ``insert_points`` slab
+    invariant: identity quaternion, zero features, certainty and stamps."""
+    c1 = state.positions.shape[0]
+    dev = state.positions.device
+    rows = torch.arange(c1, device=dev)
+    live = rows < state.count
+    certain = state.certainty >= prune_certainty_thre
+    if global_prune:
+        keep = live & certain
+    else:
+        dtd = torch.abs(travel_dist[cur_ts] - travel_dist[state.ts_update.long()])
+        keep = live & ~((dtd > diff_travel_dist_local) & ~certain)
+    new_count = torch.sum(keep.to(torch.int32))
+    src = compact_indices(keep, c1)
+    kept = rows < new_count
+
+    def compact(arr):
+        moved = arr[src]
+        mask = kept.reshape((c1,) + (1,) * (arr.dim() - 1))
+        return torch.where(mask, moved, torch.zeros_like(moved))
+
+    positions = compact(state.positions)
+    quats = compact(state.quats)
+    quats[:, 0] = torch.where(kept, quats[:, 0], torch.ones_like(quats[:, 0]))
+    ts_create = compact(state.ts_create)
+    hash_table, hash_mirror = _rebuild_hash(
+        positions, ts_create, new_count, travel_dist, resolution,
+        state.hash_table.shape[0],
+    )
+    return NeuralMapState(
+        positions=positions,
+        quats=quats,
+        geo_feats=compact(state.geo_feats),
+        color_feats=compact(state.color_feats),
+        certainty=compact(state.certainty),
+        ts_create=ts_create,
+        ts_update=compact(state.ts_update),
+        count=new_count,
+        hash_table=hash_table,
+        hash_mirror=hash_mirror,
+    )
+
+
+def adjust_map(
+    state: NeuralMapState,
+    pose_diff: torch.Tensor,  # [T,4,4] per-frame pose corrections
+    travel_dist: torch.Tensor,
+    resolution,
+    use_mid_ts: bool = True,
+) -> NeuralMapState:
+    """Apply per-frame pose corrections (from PGO / global BA) to the map:
+    each point moves by the correction of its (mid) timestamp, its stored
+    orientation accumulates the rotation, and the hash is rebuilt for the
+    moved positions. The rotation is applied as multiply-and-reduce, not a
+    matmul, so no matmul precision setting can move the map."""
+    c1 = state.positions.shape[0]
+    ts = (
+        torch.div(state.ts_create + state.ts_update, 2, rounding_mode="floor")
+        if use_mid_ts
+        else state.ts_create
+    )
+    T = pose_diff[ts.clamp(min=0).long()]  # [C+1,4,4]
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    live = (torch.arange(c1, device=state.positions.device) < state.count)[:, None]
+    moved = torch.sum(R * state.positions[:, None, :], dim=-1) + t
+    positions = torch.where(live, moved, state.positions)
+    dq = lie.rotmat_to_quat(R)
+    quats = torch.where(live, lie.quat_multiply(dq, state.quats), state.quats)
+    hash_table, hash_mirror = _rebuild_hash(
+        positions, state.ts_create, state.count, travel_dist, resolution,
+        state.hash_table.shape[0],
+    )
+    return replace(
+        state, positions=positions, quats=quats, hash_table=hash_table,
+        hash_mirror=hash_mirror,
+    )

@@ -3,10 +3,8 @@ PyTorch version.
 
 Replaces ``clid_slam_tpu/ops/pallas_mapping.py:make_pallas_map_loop``. The
 kernel source is ``clid_slam_torch/csrc/map_loop.cu`` (its header note
-says what bounds it on the H100 and how the design answers that). It is
-built with ``nvcc`` for ``sm_90a`` into a C-ABI shared library at first
-use, under ``clid_slam_torch/build/`` (listed in ``.gitignore``), and bound
-with ``ctypes``.
+says what bounds it on the H100 and how the design answers that);
+``ops/_build.py`` compiles it at first use and binds it with ``ctypes``.
 
 ``map_loop`` dispatches on the tensors' device: CUDA tensors launch the
 kernel (or raise), CPU tensors run ``map_loop_reference``. There is no
@@ -21,81 +19,27 @@ tap validity [bd]. Tap j belongs to sample j * dec_step.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from typing import Tuple
 
 import torch
 
 from ..models.decoder import MLPParams
-
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "map_loop.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+from . import _build
 
 # launches of the kernel (one per map_loop call on CUDA tensors)
 launches = 0
 
-_lib = None
-_lock = threading.Lock()
 
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: cannot build the map_loop kernel")
-
-
-def lib_path() -> str:
-    """The library's path, named by a hash of the source and NVCC_FLAGS so
-    that a change to either builds a new one."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as fh:
-        h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmap_loop-{h.hexdigest()[:16]}.so")
-
-
-def build() -> str:
-    """Compile the kernel into ``lib_path()`` unless it is there. Returns
-    nvcc's -Xptxas -v report when it compiled."""
-    path = lib_path()
-    if os.path.exists(path):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, path)
-    return res.stderr
+def _declare(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.clid_map_loop.argtypes = [vp] * 17 + [ci] * 10 + [cf] * 6 + [vp]
+    lib.clid_map_loop.restype = ci
+    lib.clid_map_loop_blocks.argtypes = [ci, ci]
+    lib.clid_map_loop_blocks.restype = ci
 
 
 def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            build()
-            lib = ctypes.CDLL(lib_path())
-            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.clid_map_loop.argtypes = [vp] * 17 + [ci] * 10 + [cf] * 6 + [vp]
-            lib.clid_map_loop.restype = ci
-            lib.clid_map_loop_blocks.argtypes = [ci, ci]
-            lib.clid_map_loop_blocks.restype = ci
-            _lib = lib
-    return _lib
+    return _build.load("map_loop", _declare)
 
 
 def flatten_mlp(mlp: MLPParams) -> torch.Tensor:

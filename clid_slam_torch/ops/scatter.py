@@ -8,7 +8,8 @@ explicitly as the last occurrence and then writes the winner's row through
 every duplicate index, so all writes to one slot carry the same data and the
 result is deterministic on any device. ``segment_add`` does the same for
 additive scatters, which ``index_add_`` on CUDA sums with atomics in no
-fixed order.
+fixed order, and ``ordered_cumsum`` for a float prefix sum, which
+``torch.cumsum`` on CUDA combines in an order that varies from run to run.
 """
 
 from __future__ import annotations
@@ -79,3 +80,16 @@ def segment_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> torc
     ext = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
     ext.index_put_((target,), ext[target] + sums.to(dst.dtype))
     return ext[:n]
+
+
+def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sum of a non-negative float vector that repeats bit for bit
+    from run to run on any device. ``torch.cumsum`` of floats on CUDA is a
+    parallel scan whose partial sums meet in an order that depends on
+    timing. Here the terms are summed in 2^-32 fixed point: integer addition
+    is exact, hence the same in any order. (On the CPU ``torch.cumsum``
+    accumulates in float64; this agrees with it to the last float32 bit but
+    for rounding ties.)"""
+    scale = float(1 << 32)
+    fixed = torch.round(x.to(torch.float64) * scale).to(torch.int64)
+    return (torch.cumsum(fixed, 0).to(torch.float64) / scale).to(x.dtype)

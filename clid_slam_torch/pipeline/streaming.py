@@ -6,11 +6,15 @@ label map, replay pool, decoder) lives on the device in ``StreamState``.
 One frame = IMU propagation + candidate-cached iterated update + map prep +
 adaptive iteration count + mapping, with the host uploading the scan and
 the IMU window once. Tracked frames map with the fused kernel
-(``ops/map_loop.py``); frame 0 runs the general multi-batch body.
+(``ops/map_loop.py``) or, where the config is ineligible for it, with the
+mapper's autograd loop; frame 0 runs the general multi-batch body. With
+``prune_map_on`` the map is pruned and rehashed every ``prune_freq_frame``
+frames, after the frame step.
 
 Host reads inside a frame: the iterated update reads its exit flag once
-per iteration, and frame 0 reads its iteration count to size the outer
-mapping loop. Everything else stays on the device until ``sync()``.
+per iteration, frame 0 reads its iteration count to size the outer
+mapping loop, and a tracked frame on the autograd loop reads its step
+count once. Everything else stays on the device until ``sync()``.
 
 The tracking, prep and mapping stages run under ``torch.profiler``
 ranges (``frame.track``, ``frame.prep``, ``frame.map``) so that a profile
@@ -78,11 +82,10 @@ def check_supported(cfg: Config) -> None:
             ("semantic_on", cfg.semantic_on),
             ("dynamic_filter_on", cfg.dynamic_filter_on),
             ("ba_freq_frame>0", cfg.ba_freq_frame > 0),
-            ("prune_map_on", cfg.prune_map_on),
             ("mlp_bf16", cfg.mlp_bf16),
             ("weighted_first=False", not cfg.weighted_first),
             ("track_cached=False", not cfg.track_cached),
-            ("map_dup_independent=False", not cfg.map_dup_independent),
+            (f"feature_dim={cfg.feature_dim} (not a multiple of 4)", cfg.feature_dim % 4 != 0),
         ) if on
     ]
     if missing:
@@ -375,6 +378,9 @@ class StreamingSlam:
         self.processed = 0
         # insert candidates dropped by the pre-probe compaction (all frames)
         self.insert_dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        # (frame_id, point count before, after) of every prune; the counts
+        # stay device scalars until sync()
+        self.prune_log = []
 
     def _init_state(self):
         cfg, dev = self.cfg, self.device
@@ -514,6 +520,17 @@ class StreamingSlam:
             frame_id > cfg.freeze_after_frame, draws,
         )
         self.insert_dropped = self.insert_dropped + dropped
+
+        # prune cadence (no host read)
+        if cfg.prune_map_on and (frame_id + 1) % cfg.prune_freq_frame == 0:
+            before = self.state.map_state.count
+            pruned = nm.prune_and_rehash(
+                self.state.map_state, cfg.max_prune_certainty,
+                self.state.travel_dist, frame_id, cfg.diff_travel_dist_local,
+                cfg.voxel_size_m,
+            )
+            self.prune_log.append((frame_id, before, pruned.count))
+            self.state = replace(self.state, map_state=pruned)
         self.processed = frame_id + 1
 
     def block(self):
@@ -534,4 +551,5 @@ class StreamingSlam:
             "lose_track": bool(st.lose_track),
             "neural_points": self.neural_point_count(),
             "insert_dropped": int(self.insert_dropped),
+            "prunes": [(f, int(b), int(a)) for f, b, a in self.prune_log],
         }

@@ -67,10 +67,46 @@ def test_entry_points_default_to_cuda():
             StreamingSlam(port_config(tiny_config()), total_frames=4)
 
 
-def test_unported_options_raise():
+@pytest.mark.parametrize(
+    "option, value, named",
+    [
+        ("dynamic_filter_on", True, "dynamic_filter_on"),
+        ("color_on", True, "color_on"),
+        ("semantic_on", True, "semantic_on"),
+        ("mlp_bf16", True, "mlp_bf16"),
+        ("weighted_first", False, "weighted_first=False"),
+        ("ba_freq_frame", 5, "ba_freq_frame>0"),
+    ],
+    ids=lambda v: v if isinstance(v, str) else None,
+)
+def test_unported_options_raise(option, value, named):
     from clid_slam_torch.pipeline.streaming import StreamingSlam
     from torch_parity import port_config, tiny_config
 
-    cfg = port_config(tiny_config(prune_map_on=True))
-    with pytest.raises(NotImplementedError, match="prune_map_on"):
+    cfg = port_config(tiny_config(**{option: value}))
+    with pytest.raises(NotImplementedError, match=named):
         StreamingSlam(cfg, total_frames=4, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(prune_map_on=True), dict(mlp_leaky_relu=True), dict(map_dup_independent=False),
+     dict(main_loss_type="sdf_l2")],
+    ids=lambda d: next(iter(d)),
+)
+def test_ported_options_construct(overrides):
+    """The prune cadence and the configs the fused kernel does not take
+    (they run the mapper's autograd loop) build a StreamingSlam."""
+    from clid_slam_torch.pipeline.streaming import StreamingSlam
+    from torch_parity import port_config, tiny_config
+
+    StreamingSlam(port_config(tiny_config(**overrides)), total_frames=4, device="cpu")
+
+
+def test_large_bench_config_is_supported():
+    from clid_slam_torch.pipeline import bench_cases as bc
+    from clid_slam_torch.pipeline.streaming import check_supported
+
+    cfg = bc.build_config(large=True)
+    assert cfg.prune_map_on
+    check_supported(cfg)

@@ -1,7 +1,9 @@
 """Mapper parity with the JAX batch draws injected: the fast tracked-frame
 body (max_outer=1, dup_independent; the port runs the fused loop's plain
-version here, JAX its autograd loop) and the general multi-batch body of
-frame 0 (Adam moments carried across batches). Tolerances as for the map
+version here, JAX its autograd loop), the autograd fallback of that body
+for configs the kernel does not take, the static single-batch body
+(dup_independent off) and the general multi-batch body of frame 0 (Adam
+moments carried across batches). Tolerances as for the map
 loop: features and MLP max diff < 3 lr and 99th percentile < 2.5 lr,
 losses rtol 5e-2; certainty rtol 1e-5, update timestamps exact."""
 
@@ -30,7 +32,7 @@ MAP_KW = dict(
 )
 
 
-def _scene():
+def _scene(feature_dim=8):
     rng = np.random.default_rng(0)
     d = rng.normal(size=(6000, 3))
     d[:, 2] *= 0.4
@@ -38,13 +40,13 @@ def _scene():
     box = np.array([3.0, 2.5, 1.5])
     surf = d * np.min(box / np.abs(d), axis=1)[:, None]
     td = jnp.zeros((8,), jnp.float32)
-    ms = jnm.init_map(1 << 13, 1 << 15, 8)
+    ms = jnm.init_map(1 << 13, 1 << 15, feature_dim)
     ms, _ = jnm.insert_points(
         ms, jnp.asarray(surf.astype(np.float32)), jnp.ones(6000, bool), RES, td, 0, 1e9
     )
     c = int(ms.count)
     ms = ms._replace(geo_feats=ms.geo_feats.at[:c].set(
-        jnp.asarray(rng.normal(0, 0.1, (c, 8)).astype(np.float32))
+        jnp.asarray(rng.normal(0, 0.1, (c, feature_dim)).astype(np.float32))
     ))
     disp = rng.normal(0, 0.2, (6000, 1))
     coords = (surf * (1 + disp / np.linalg.norm(surf, axis=1, keepdims=True))).astype(np.float32)
@@ -55,7 +57,7 @@ def _scene():
         jnp.asarray(rng.uniform(size=6000) < 0.95), 1,
         jnp.asarray(rng.uniform(size=6000) < 0.3), key=jax.random.PRNGKey(0),
     )
-    mlp = jdec.init_mlp(jax.random.PRNGKey(2), 11, 64, 1, 1, True)
+    mlp = jdec.init_mlp(jax.random.PRNGKey(2), feature_dim + 3, 64, 1, 1, True)
     return ms, pool, mlp, td
 
 
@@ -73,51 +75,70 @@ def _close(got, want, scale=1.0):
     assert np.quantile(d, 0.99) < 2.5 * LR * scale + 1e-6
 
 
-@pytest.mark.parametrize("body", ["fast", "general"])
-def test_mapping_body_matches_jax(body):
-    ms, pool, mlp, td = _scene()
+# the single-batch bodies beside the kernel path: the autograd fallback on
+# the expanded features (a loss or a feature width the kernel does not
+# take) and the static body on the work slab (dup_independent off)
+SINGLE = dict(resample_every=20, max_outer=1)
+BODIES = {
+    "fast": dict(SINGLE, dup_independent=True),
+    "general": dict(resample_every=3),
+    "fallback_zhong": dict(SINGLE, dup_independent=True, loss_type="zhong"),
+    "fallback_feature_dim4": dict(SINGLE, dup_independent=True, feature_dim=4),
+    "static": dict(SINGLE, dup_independent=False),
+    "static_sdf_l2": dict(SINGLE, dup_independent=False, loss_type="sdf_l2"),
+}
+
+
+def _run_both(kw, iters, n_batches):
+    """The JAX mapping body and the port's on the same scene and draws."""
+    ms, pool, mlp, td = _scene(kw["feature_dim"])
     key = jax.random.PRNGKey(5)
-    if body == "fast":
-        kw = dict(MAP_KW, resample_every=20, max_outer=1, dup_independent=True)
-        iters, (_, kb) = 7, jax.random.split(key)
-        draws = [_draws(pool, kb)]
-    else:
-        kw = dict(MAP_KW, resample_every=3)
-        iters, draws, k = 8, [], key
-        for _ in range(3):
-            k, kb = jax.random.split(k)
-            draws.append(_draws(pool, kb))
+    draws, k = [], key
+    for _ in range(n_batches):
+        k, kb = jax.random.split(k)
+        draws.append(_draws(pool, kb))
     tmap = neural_map_from_numpy([np.asarray(x) for x in ms], "cpu")
     tpool = pool_from_numpy([np.asarray(x) for x in pool], "cpu")
     tmlp = mlp_from_numpy(jax.tree.map(np.asarray, mlp), "cpu")
+    geo0 = np.asarray(ms.geo_feats)
     jres = jmp.make_mapping_fn(**kw, as_body=True)(
         ms, mlp, mlp, mlp, pool, td, 1, 1e9, key, jnp.int32(iters), jnp.float32(1.0)
     )
-    jstate, jmlp, jloss = jres[0], jres[1], jres[4]
-    tstate, tmlp2, tloss = tmp.make_mapping_fn(**kw)(
+    tres = tmp.make_mapping_fn(**kw)(
         tmap, tmlp, tpool, t(td), 1, 1e9, iters, 1.0, batch_draws=draws
     )
+    return geo0, (jres[0], jres[1], jres[4]), tres
+
+
+def _assert_mapping_close(geo0, jres, tres):
+    (jstate, jmlp, jloss), (tstate, tmlp2, tloss) = jres, tres
     _close(tstate.geo_feats, jstate.geo_feats)
-    assert np.abs(np.asarray(jstate.geo_feats) - np.asarray(ms.geo_feats)).max() > 5 * LR
+    assert np.abs(np.asarray(jstate.geo_feats) - geo0).max() > 5 * LR
     for got, want in zip(tmlp2.tensors(), jax.tree_util.tree_leaves(jmlp)):
         _close(got, want)
     np.testing.assert_allclose(n(tloss), np.asarray(jloss), rtol=5e-2, atol=1e-4)
     np.testing.assert_allclose(n(tstate.certainty), np.asarray(jstate.certainty), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(n(tstate.ts_update), np.asarray(jstate.ts_update))
     assert float(tstate.certainty.sum()) > 100
+    assert not tstate.geo_feats.requires_grad
+
+
+@pytest.mark.parametrize("body", sorted(BODIES))
+def test_mapping_body_matches_jax(body):
+    kw = dict(MAP_KW, **BODIES[body])
+    general = body == "general"
+    geo0, jres, tres = _run_both(kw, 8 if general else 7, 3 if general else 1)
+    _assert_mapping_close(geo0, jres, tres)
 
 
 def test_ineligible_fast_body_raises():
-    ms, pool, mlp, td = _scene()
-    kw = dict(MAP_KW, resample_every=20, max_outer=1, dup_independent=True)
-    fn = tmp.make_mapping_fn(**dict(kw, mlp_leaky=True))
-    with pytest.raises(NotImplementedError, match="mlp_leaky_relu"):
-        fn(
-            neural_map_from_numpy([np.asarray(x) for x in ms], "cpu"),
-            mlp_from_numpy(jax.tree.map(np.asarray, mlp), "cpu"),
-            pool_from_numpy([np.asarray(x) for x in pool], "cpu"),
-            t(td), 1, 1e9, 3, 1.0,
-        )
+    """A config the fused kernel does not take (leaky ReLU) runs the
+    autograd loop on the expanded features, as the JAX package's XLA loop
+    does, and says so in a RuntimeWarning that names the reasons."""
+    kw = dict(MAP_KW, resample_every=20, max_outer=1, dup_independent=True, mlp_leaky=True)
+    with pytest.warns(RuntimeWarning, match="mlp_leaky_relu"):
+        geo0, jres, tres = _run_both(kw, 7, 1)
+    _assert_mapping_close(geo0, jres, tres)
     assert tmp.pallas_ineligible_reasons(
         color_on=False, sem_on=False, weighted_first=True, mlp_bf16=False,
         mlp_leaky=False, loss_type="bce", feature_dim=8, n_hidden=3,
@@ -125,3 +146,10 @@ def test_ineligible_fast_body_raises():
         color_on=False, sem_on=False, weighted_first=True, mlp_bf16=False,
         mlp_leaky=False, loss_type="bce", feature_dim=8, n_hidden=3,
     ) == ["geo_mlp_level=3"]
+
+
+def test_feature_dim_not_multiple_of_4_is_unported():
+    """The row-gather kernel takes rows of whole 16-byte pieces; the other
+    widths are listed as not ported and refused by name."""
+    with pytest.raises(NotImplementedError, match="feature_dim=6"):
+        tmp.make_mapping_fn(**dict(MAP_KW, feature_dim=6))

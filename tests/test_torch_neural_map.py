@@ -2,7 +2,10 @@
 mirror exact, including hash collisions between staged voxels and the
 65,536-row pre-probe compaction. Queries: indices exact, weights and
 features atol 1e-6. The duplicate-index scatter rule is pinned against
-XLA's CPU scatter."""
+XLA's CPU scatter. prune_and_rehash (local and global): every field bit for
+bit, moved floats included, also with several live points per hash bucket.
+adjust_map: positions and quaternions atol 1e-5, the rebuilt hash exact
+where the moved positions agree bit for bit."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -159,3 +162,66 @@ def test_certainty_ops_match_jax():
     np.testing.assert_allclose(n(tst.certainty), np.asarray(jst.certainty), atol=1e-5, rtol=1e-6)
     np.testing.assert_array_equal(n(tst.ts_update), np.asarray(jst.ts_update))
     assert torch.equal(tst.ts_create, ts.ts_create)
+
+
+def _aged_map(hsize):
+    """Three frames of inserts with growing travel distance, then random
+    certainties and update stamps, as both sides' states."""
+    rng = np.random.default_rng(8)
+    pts = [rng.normal(0, 2.0 + f, (3000, 3)).astype(np.float32) for f in range(3)]
+    mask = [np.ones(3000, bool)] * 3
+    _, js, _ = _insert_both(pts, mask, 1 << 13, hsize, 3)
+    c = int(js.count)
+    js = js._replace(
+        geo_feats=js.geo_feats.at[:c].set(jnp.asarray(rng.normal(0, 0.1, (c, 8)).astype(np.float32))),
+        certainty=js.certainty.at[:c].set(jnp.asarray(rng.uniform(0, 6, c).astype(np.float32))),
+        ts_update=js.ts_update.at[:c].set(jnp.asarray(rng.integers(0, 8, c).astype(np.int32))),
+        quats=js.quats.at[:c].set(jnp.asarray(rng.normal(size=(c, 4)).astype(np.float32))),
+    )
+    td = np.linspace(0.0, 3.0, 8).astype(np.float32)
+    leaves = [np.array(x) for x in js]  # copies: the JAX prune donates its input
+    return js, neural_map_from_numpy(leaves, device="cpu"), td, c
+
+
+@pytest.mark.parametrize("global_prune", [False, True], ids=["local", "global"])
+@pytest.mark.parametrize("hsize", [1 << 15, 1 << 9], ids=["sparse_hash", "shared_buckets"])
+def test_prune_and_rehash_bit_exact(hsize, global_prune):
+    js, ts, td, c = _aged_map(hsize)
+    tout = tnm.prune_and_rehash(ts, 3.0, t(td), 7, 1.0, RES, global_prune=global_prune)
+    jout = jnm.prune_and_rehash(js, 3.0, jnp.asarray(td), 7, 1.0, RES, global_prune=global_prune)
+    _assert_map_equal(tout, jout)
+    kept = int(tout.count)
+    assert 0.2 * c < kept < 0.9 * c
+    # freed rows satisfy the insert invariant
+    assert torch.all(tout.quats[kept:, 0] == 1) and not tout.quats[kept:, 1:].any()
+    assert not tout.geo_feats[kept:].any() and not tout.certainty[kept:].any()
+    if hsize == 1 << 9:  # several live points per bucket: the last one wins
+        assert int((n(tout.hash_table) >= 0).sum()) < kept
+    # the pruned map takes inserts as a fresh one does
+    p = np.random.default_rng(9).normal(0, 6.0, (2000, 3)).astype(np.float32)
+    t2, _ = tnm.insert_points(tout, t(p), torch.ones(2000, dtype=torch.bool), RES, t(td), 7, 1.0)
+    j2, _ = jnm.insert_points(jout, jnp.asarray(p), jnp.ones(2000, bool), RES, jnp.asarray(td), 7, 1.0)
+    _assert_map_equal(t2, j2)
+    assert int(t2.count) > kept
+
+
+@pytest.mark.parametrize("use_mid_ts", [True, False])
+def test_adjust_map_matches_jax(use_mid_ts):
+    from clid_slam_tpu.utils import lie as jlie
+
+    js, ts, td, c = _aged_map(1 << 15)
+    rng = np.random.default_rng(10)
+    tau = rng.normal(0, 0.05, (8, 6)).astype(np.float32)
+    pose_diff = np.asarray(jlie.se3_exp(jnp.asarray(tau)))
+    jout = jnm.adjust_map(js, jnp.asarray(pose_diff), jnp.asarray(td), RES, use_mid_ts)
+    tout = tnm.adjust_map(ts, t(pose_diff), t(td), RES, use_mid_ts)
+    np.testing.assert_allclose(n(tout.positions), np.asarray(jout.positions), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(n(tout.quats), np.asarray(jout.quats), atol=1e-5, rtol=0)
+    assert np.abs(n(tout.positions[:c]) - n(ts.positions[:c])).max() > 0.05
+    if np.array_equal(n(tout.positions), np.asarray(jout.positions)):
+        np.testing.assert_array_equal(n(tout.hash_table), np.asarray(jout.hash_table))
+        np.testing.assert_array_equal(n(tout.hash_mirror), np.asarray(jout.hash_mirror))
+    else:  # a position one ulp apart may sit in the neighbouring voxel
+        assert (n(tout.hash_table) == np.asarray(jout.hash_table)).mean() > 0.999
+    for f in ("geo_feats", "certainty", "ts_create", "ts_update", "count"):
+        np.testing.assert_array_equal(n(getattr(tout, f)), np.asarray(getattr(jout, f)), err_msg=f)

@@ -8,6 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from clid_slam_torch.convert import local_map_from_numpy, pool_from_numpy
 from clid_slam_torch.mapping import pool as tpl
@@ -16,6 +17,7 @@ from clid_slam_tpu.mapping import pool as jpl
 from clid_slam_tpu.mapping import sampler as jsm
 from clid_slam_tpu.models import local_map as jlm
 from clid_slam_tpu.utils import lie as jlie
+
 from torch_parity import n, t
 
 LRES = 0.15
@@ -151,3 +153,16 @@ def test_sample_batch_indices_matches_jax(bs_new):
     g = torch.Generator().manual_seed(0)
     drawn = n(tpl.sample_batch_indices(tp, 512, bs_new, generator=g))
     assert drawn.min() >= 0 and drawn.max() < hi
+
+
+def test_ordered_cumsum_is_the_float64_prefix_sum():
+    """The eviction draw's prefix sum is exact to float32: it equals the
+    float64 prefix sum rounded once (what torch.cumsum gives on the CPU),
+    and jnp.cumsum within float32 summation error (rtol 1e-5)."""
+    from clid_slam_torch.ops.scatter import ordered_cumsum
+
+    e = -np.log(np.random.default_rng(3).uniform(1e-6, 1.0, 20001)).astype(np.float32)
+    got = n(ordered_cumsum(t(e)))
+    np.testing.assert_array_equal(got, np.cumsum(e.astype(np.float64)).astype(np.float32))
+    np.testing.assert_array_equal(got, n(torch.cumsum(t(e), 0)))
+    np.testing.assert_allclose(got, np.asarray(jnp.cumsum(jnp.asarray(e))), rtol=1e-5)

@@ -3,7 +3,10 @@ across with clid_slam_torch.convert: array by array, the SDF at the scan
 points (atol 1e-5), the cached update on the JAX-trained map (poses within
 2e-3) and one tracked frame with the JAX draws (pose within 1e-4). Then the
 port's own StreamingSlam over the 12-frame sequence of
-tests/test_streaming.py under that file's gates."""
+tests/test_streaming.py under that file's gates. Last, the prune cadence:
+a tracked frame that ends in a prune (the same rows kept in the same order,
+positions within 1e-5, features' 99.9th percentile within 3 lr) and the frame after it, one step ahead
+from the pruned state (pose within 1e-4)."""
 
 import numpy as np
 import jax
@@ -191,3 +194,71 @@ def test_tracked_frame_one_step_ahead_matches_jax(jax_run, seq):
     assert int(port.state.map_state.count) == int(s.state.map_state.count)
     assert int(port.state.pool.size) == int(s.state.pool.size)
     np.testing.assert_allclose(n(port.state.losses[i]), np.asarray(s.state.losses[i]), rtol=5e-2)
+
+
+def test_frame_after_prune_one_step_ahead_matches_jax(jax_run, seq, monkeypatch):
+    """The prune cadence of StreamingSlam: the next frame ends in a
+    prune on both sides (``(frame_id + 1) % prune_freq_frame == 0``), and
+    the frame after it starts from the pruned, rehashed map. Advances the
+    shared JAX system by two frames, so it runs after the other tests."""
+    cfg, s = jax_run
+    while s.processed < N_JAX + 1:  # run alone: the test above has not advanced it
+        s.process_frame(s.processed, seq.scans[s.processed], seq.imu_windows[s.processed])
+    i = s.processed
+    port = TorchSlam(port_config(cfg), total_frames=16, device="cpu")
+    gen = port.state.key
+    names = ("prune_map_on", "prune_freq_frame", "diff_travel_dist_local", "max_prune_certainty")
+    saved = [getattr(cfg, k) for k in names]
+    pruned_from = []  # the port's point count going into each prune
+    port_prune = tnm.prune_and_rehash
+
+    def counting_prune(state, *a, **kw):
+        pruned_from.append(int(state.count))
+        return port_prune(state, *a, **kw)
+
+    monkeypatch.setattr(tnm, "prune_and_rehash", counting_prune)
+    try:
+        # both packages read these at the prune, after the frame step: a window
+        # of 0.01 m makes every point that this frame did not touch inactive.
+        # (At a certainty limit of 3.0 one sample of frame i + 1 sits on the
+        # novelty threshold and flips between the two sides, which shifts
+        # the whole replay batch; 4.0 has no such sample.)
+        for c in (cfg, port.cfg):
+            for k, v in zip(names, (True, i + 1, 0.01, 4.0)):
+                setattr(c, k, v)
+        for frame in (i, i + 1):
+            port.state = stream_state_from_numpy(
+                [np.asarray(x) for x in jax.tree_util.tree_leaves(s.state)], "cpu"
+            )
+            port.state.key = gen
+            draws = _jax_frame_draws(cfg, s.state.key)
+            port.process_frame(frame, seq.scans[frame], seq.imu_windows[frame], draws=draws)
+            s.process_frame(frame, seq.scans[frame], seq.imu_windows[frame])
+            np.testing.assert_allclose(
+                n(port.state.odom_poses[frame]), np.asarray(s.state.odom_poses[frame]), atol=1e-4
+            )
+            assert int(port.state.track_iters[frame]) == int(s.state.track_iters[frame])
+            tm, jm = port.state.map_state, s.state.map_state
+            assert int(tm.count) == int(jm.count)
+            np.testing.assert_allclose(n(port.state.losses[frame]), np.asarray(s.state.losses[frame]), rtol=5e-2)
+            if frame == i:  # right after the prune
+                kept = int(tm.count)
+                assert 0.3 * pruned_from[0] < kept <= pruned_from[0] - 50, (pruned_from, kept)
+                # the same rows survive in the same order; this frame's new
+                # points carry the pose's rounding (1e-4 above), so their
+                # positions agree to 1e-5 and a few may hash one voxel over
+                for f in ("ts_create", "ts_update", "quats"):
+                    np.testing.assert_array_equal(n(getattr(tm, f)), np.asarray(getattr(jm, f)), err_msg=f)
+                np.testing.assert_allclose(n(tm.positions), np.asarray(jm.positions), atol=1e-5)
+                assert (n(tm.hash_table) == np.asarray(jm.hash_table)).mean() > 0.999
+                # up to 20 Adam steps here against the mapper test's 7: the
+                # sign-like first steps at the noise floor leave a few
+                # elements further apart, so hold the 99.9th percentile to
+                # that test's 3 lr and the largest to 10 lr
+                d = np.abs(n(tm.geo_feats) - np.asarray(jm.geo_feats))
+                assert np.quantile(d, 0.999) < 3 * cfg.lr and d.max() < 10 * cfg.lr, d.max()
+                assert not tm.geo_feats[kept:].any() and not tm.certainty[kept:].any()
+        assert len(pruned_from) == 1  # the cadence: frame i prunes, frame i + 1 does not
+    finally:
+        for k, v in zip(names, saved):
+            setattr(cfg, k, v)
