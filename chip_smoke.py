@@ -9,12 +9,16 @@ Phases, each printing one JSON line:
   build   nvcc of every clid_slam_torch/csrc/*.cu for sm_90a, side by side,
           with its seconds and the ptxas summary;
   kernel  the fused mapping Adam loop against its plain PyTorch version at
-          the bench shapes (bs 16384, K 6, F 8, P 3, H 64, bd 1638,
-          10 iterations), for 1 and 2 hidden layers and layer norm on:
-          errors, kernel ms, plain ms and the card's bound;
+          the bench shapes (bs 16384, K 6, F 8, P 3, bd 1638, 10 iterations),
+          in every variant (1 or 2 hidden layers of 32 or 64, layer norm off
+          or on) and with its slab streamed from device memory: errors, ms
+          issued eagerly (CUDA events, host enqueue included, as for every
+          kernel of the summary line), the kernel's device time (profiler)
+          beside it as device_ms, plain ms and the card's bound;
   gather  the gather probe (clid_slam_torch/tools/probe_gather.py): the
           row, lane and column gather kernels at the six probe shapes and
-          at the mapper's two shapes (int64 indices), each equal to its
+          at the mapper's shapes (int64 indices; feature_dim 8, and 6 for
+          rows that move as single floats), each equal to its
           plain version bit for bit, with kernel, plain and library-call ms
           and the card's bound;
   stream  the port's StreamingSlam on the bench's small sequence
@@ -41,10 +45,10 @@ or clid_slam_tpu.
 """
 
 import argparse
+import functools
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -52,112 +56,32 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): plain f32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_S = 3.35e12
-
 # bench shapes of the mapping kernel (bench.py small config)
 BS, K, F, P, H = 16384, 6, 8, 3, 64
 DEC, BD = 10, 1638
-LR, SDF_SCALE, SIGMA, ADAM_EPS, W_E, NGE = 0.01, 0.055, 0.055, 1e-15, 0.5, 0.08
-N_ITERS = 10
+LR, N_ITERS = 0.01, 10
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def make_kernel_inputs(n_hidden, seed, device):
-    """Bench-shaped inputs made from a seed with numpy (the layout the
-    mapper's cache hands the kernel)."""
-    import torch
-
-    from clid_slam_torch.models.decoder import MLPParams
-
-    rng = np.random.default_rng(seed)
-    f = rng.normal(0, 0.1, (BS, K, F)).astype(np.float32)
-    w0 = rng.uniform(0, 1, (BS, K)).astype(np.float32)
-    w0[rng.uniform(size=(BS, K)) < 0.2] = 0.0
-    w0 /= np.maximum(w0.sum(1, keepdims=True), 1e-9)
-    encw0 = rng.normal(0, 0.2, (BS, P)).astype(np.float32)
-    label = rng.normal(0, 0.1, BS).astype(np.float32)
-    bvalid = (rng.uniform(size=BS) < 0.9).astype(np.float32)
-    wsel = (rng.uniform(0.5, 1.5, BS) * bvalid).astype(np.float32)
-    wtap = rng.uniform(0, 1, (6, BD, K)).astype(np.float32)
-    wtap /= np.maximum(wtap.sum(-1, keepdims=True), 1e-9)
-    enctapw = rng.normal(0, 0.2, (6, BD, P)).astype(np.float32)
-    vd = bvalid[::DEC][:BD].copy()
-    ws = [rng.normal(0, 0.3, (F + P, H)).astype(np.float32)]
-    bs_ = [rng.normal(0, 0.1, (H,)).astype(np.float32)]
-    if n_hidden == 2:
-        ws.append(rng.normal(0, 0.2, (H, H)).astype(np.float32))
-        bs_.append(rng.normal(0, 0.1, (H,)).astype(np.float32))
-    wo = rng.normal(0, 0.3, (H, 1)).astype(np.float32)
-    bo = rng.normal(0, 0.1, (1,)).astype(np.float32)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    mlp = MLPParams([t(w) for w in ws], [t(b) for b in bs_], t(wo), t(bo))
-    label_op = torch.sigmoid(t(label) / SIGMA)
-    denom_inv = 1.0 / max(float(bvalid.sum()), 1.0)
-    eik_den_inv = 1.0 / max(float(vd.sum()), 1.0)
-    return dict(
-        f0=t(f), w0=t(w0), encw0=t(encw0), label_op=label_op, wsel=t(wsel),
-        wtap=t(wtap), enctapw=t(enctapw), vd=t(vd), mlp=mlp,
-        denom_inv=denom_inv, eik_den_inv=eik_den_inv,
-    )
-
-
-def map_loop_flops(n_hidden, n_iters):
-    """Operations the loop needs: per sample and per tap one MLP forward
-    and backward, the IDW feature sums both ways, and Adam on every
-    parameter (~10 ops each)."""
-    D = F + P
-    fwd = 2 * D * H + 2 * H + (2 * H * H if n_hidden == 2 else 0)
-    bwd = 2 * H + 2 * H + 2 * D * H + 2 * F * H + (4 * H * H if n_hidden == 2 else 0)
-    feat = 4 * K * F
-    n_params = D * H + H + (H * H + H if n_hidden == 2 else 0) + H + 1
-    per_iter = (BS + 6 * BD) * (fwd + bwd + feat) + 10 * (BS * K * F + n_params)
-    return per_iter * n_iters
-
-
-def map_loop_bytes(n_hidden):
-    """Each input read once, each output written once."""
-    D = F + P
-    n_params = D * H + H + (H * H + H if n_hidden == 2 else 0) + H + 1
-    inputs = BS * K * F + BS * K + BS * P + 2 * BS + 6 * BD * (K + P) + BD + n_params
-    outputs = BS * K * F + n_params + 2
-    return 4 * (inputs + outputs)
-
-
-def kernel_case(n_hidden, layer_norm, device):
+def kernel_case(n_hidden, layer_norm, device, hidden=H, streamed=False):
     import torch
 
     from clid_slam_torch.ops import map_loop as ml
-    from clid_slam_torch.tools.probe_gather import time_cuda
+    from clid_slam_torch.tools import time_map_loop as tml
 
-    x = make_kernel_inputs(n_hidden, seed=n_hidden * 10 + int(layer_norm), device=device)
-    kw = dict(
-        dec_step=DEC, sdf_scale=SDF_SCALE, sigma=SIGMA, lr=LR, adam_eps=ADAM_EPS,
-        weight_e=W_E, num_grad_eps=NGE, layer_norm=layer_norm,
-    )
-    args = lambda n: (
-        x["f0"], x["w0"], x["encw0"], x["label_op"], x["wsel"], x["wtap"],
-        x["enctapw"], x["vd"], x["mlp"], torch.tensor(n, dtype=torch.int32, device=device),
-        N_ITERS, LR, x["denom_inv"], x["eik_den_inv"],
-    )
+    seed = n_hidden * 10 + int(layer_norm) + (hidden != H)
+    x = tml.make_inputs(n_hidden, seed=seed, device=device, hidden=hidden)
+    kw = dict(tml.KW, layer_norm=layer_norm)
+    kernel = functools.partial(ml._launch, True) if streamed else ml.map_loop
+    args = lambda n: tml.call_args(x, n, device)
     # one step: rtol 1e-5 / atol 1e-6 elementwise. Adam's first step is
     # lr * g / (|g| + eps): where the plain step is below 0.999 lr the
     # gradient lies within ~1000 eps of zero, i.e. at f32 rounding noise,
     # and the step is a sign function of that noise: there only |diff| < 2 lr
-    f1, _, _ = ml.map_loop(*args(1), **kw)
+    f1, _, _ = kernel(*args(1), **kw)
     r1, _, _ = ml.map_loop_reference(*args(1), **kw)
     torch.cuda.synchronize()
     d1 = (f1 - r1).abs()
@@ -173,7 +97,7 @@ def kernel_case(n_hidden, layer_norm, device):
     # held to 3 lr for that, and the bulk of the features, the losses and
     # the MLP to tight limits that see gradient magnitudes and the state
     # carried from step to step
-    fk, mk, lk = ml.map_loop(*args(N_ITERS), **kw)
+    fk, mk, lk = kernel(*args(N_ITERS), **kw)
     fr, mr, lr_ = ml.map_loop_reference(*args(N_ITERS), **kw)
     torch.cuda.synchronize()
     d = (fk - fr).abs().flatten()
@@ -187,22 +111,30 @@ def kernel_case(n_hidden, layer_norm, device):
     mlp_err, mlp_med = float(md.max()), float(md.median())
     if not (mlp_err < 3 * LR and mlp_med <= 1e-5):
         raise AssertionError(f"MLP kernel vs plain: max err {mlp_err} median {mlp_med}")
-    ms = time_cuda(lambda: ml.map_loop(*args(N_ITERS), **kw), reps=20)
-    plain_ms = time_cuda(lambda: ml.map_loop_reference(*args(N_ITERS), **kw), reps=3)
-    flops = map_loop_flops(n_hidden, N_ITERS)
-    nbytes = map_loop_bytes(n_hidden)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    call = lambda: kernel(*args(N_ITERS), **kw)
+    # bit for bit from call to call (no float atomics)
+    again = kernel(*args(N_ITERS), **kw)
+    if not all(torch.equal(a, b) for a, b in zip([fk, *mk.tensors(), lk],
+                                                [again[0], *again[1].tensors(), again[2]])):
+        raise AssertionError("two calls of the kernel on the same inputs differ")
+    # ms: CUDA events around calls issued eagerly, host enqueue included (as
+    # every kernel of the summary line is timed); device_ms: the profiler's
+    # kernel time alone
+    ms = tml.eager_ms(call, reps=20)
+    device_ms = tml.device_ms(call, reps=20)
+    plain_ms = tml.eager_ms(lambda: ml.map_loop_reference(*args(N_ITERS), **kw), reps=3)
+    plan = ml.plan(BS, K, P, hidden, n_hidden, layer_norm, BD, DEC, device, streamed)
     return {
         "phase": "kernel", "name": "map_loop", "n_hidden": n_hidden,
-        "layer_norm": layer_norm, "bs": BS, "K": K, "F": F, "P": P, "H": H,
-        "bd": BD, "iters": N_ITERS, "max_abs_err_1step": err1,
+        "layer_norm": layer_norm, "bs": BS, "K": K, "F": F, "P": P, "H": hidden,
+        "bd": BD, "iters": N_ITERS, "plan": plan._asdict(), "max_abs_err_1step": err1,
         "noise_floor_elems_1step": n_noise,
         "max_abs_err": dmax, "p99_abs_err": d99, "mlp_max_abs_err": mlp_err,
         "mlp_median_abs_err": mlp_med, "losses_max_rel_err": loss_rel,
         "losses_kernel": lk.tolist(), "losses_plain": lr_.tolist(),
-        "ms": ms, "plain_ms": plain_ms, "flop": flops, "bytes": nbytes,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "flop": tml.flops(n_hidden, N_ITERS, hidden), "bytes": tml.nbytes(n_hidden, hidden),
+        **tml.bound(n_hidden, N_ITERS, hidden),
         "tolerance": "1 step: atol 1e-6 + rtol 1e-5 (< 2 lr where |g| is at the "
         "noise floor); 10 steps: features max < 3 lr and p99 <= 1e-5, losses "
         "rtol 1e-4, MLP max < 3 lr and median <= 1e-5",
@@ -412,21 +344,21 @@ def profile_phase(large, n_frames, n_profiled, device):
 
 def ptxas_summary(report):
     """Registers and spill stores per kernel entry from nvcc -Xptxas -v
-    (map_loop's sample-kernel entries named by their <n_hidden, hidden/32,
-    layer_norm, warps> template arguments, the gathers by their index
-    type)."""
+    (map_loop's entries named by their <n_hidden, hidden, layer_norm,
+    resident> template arguments, the gathers by their index type)."""
     out, name = [], None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            args = re.search(r"map_loop_samplesILi(\d+)ELi(\d+)ELb(\d)ELi(\d+)E", m.group(1))
-            gather = re.search(r"(gather_\w+?)_kernelI([il])E", m.group(1))
+            args = re.search(r"map_loop_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", m.group(1))
+            gather = re.search(r"(gather_\w+?)_kernelI([il])(6float4|f)?E", m.group(1))
             if args:
-                name = "samples<%s>" % ",".join(args.groups())
+                name = "map_loop<%s>" % ",".join(args.groups())
             elif gather:
-                name = "%s<%s>" % (gather.group(1), {"i": "int32", "l": "int64"}[gather.group(2)])
+                name = "%s<%s>" % (gather.group(1), {"i": "int32", "l": "int64"}[gather.group(2)]
+                                   + {None: "", "6float4": ",float4", "f": ",float"}[gather.group(3)])
             else:
-                name = "reduce"
+                name = m.group(1)
             out.append({"entry": name})
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m and out:
@@ -442,7 +374,9 @@ def mapper_gather_cases():
     it on the bench configuration, made from a seed: the work slab out of
     the map's features (ascending unique map rows, the tail padded with the
     sentinel row) and the expanded features out of the work slab (the
-    batch's kNN references in batch order). Both index vectors are int64."""
+    batch's kNN references in batch order). Both index vectors are int64.
+    The same expanded-feature gather at feature_dim 6, whose rows move as
+    single floats."""
     rng = np.random.default_rng(7)
     cap, w, n_rows = 1 << 18, BS * K, 24000
     feats = rng.normal(0, 0.1, (cap + 1, F)).astype(np.float32)
@@ -456,11 +390,13 @@ def mapper_gather_cases():
              replaces=site),
         dict(variant="mapper f0", kernel="gather_rows", table=work, idx=local_idx,
              replaces=site),
+        dict(variant="mapper f0 feature_dim 6", kernel="gather_rows",
+             table=np.ascontiguousarray(work[:, :6]), idx=local_idx, replaces=site),
     ]
 
 
 def gather_phase(device):
-    """The probe entry point's six variants and the mapper's two shapes.
+    """The probe entry point's six variants and the mapper's three shapes.
     Returns the rows and the probe run's launch counts."""
     from clid_slam_torch.ops import gather as gt
     from clid_slam_torch.tools import probe_gather as pg
@@ -515,6 +451,7 @@ def main():
     sys.path.insert(0, REPO)
     from clid_slam_torch import set_full_precision
     from clid_slam_torch.ops import _build
+    from clid_slam_torch.tools.time_map_loop import nvidia_smi_line
 
     set_full_precision()
     device = torch.device("cuda", 0)
@@ -530,8 +467,10 @@ def main():
           "sources": [f"clid_slam_torch/csrc/{n}.cu" for n in names],
           "ptxas": {n: ptxas_summary(r) for n, r in zip(names, reports)}})
 
-    cases = [kernel_case(1, False, device), kernel_case(2, False, device),
-             kernel_case(1, True, device)]
+    # the bench config first: 1 hidden layer of 64, no layer norm
+    cases = [kernel_case(nh, ln, device, hidden) for nh in (1, 2) for hidden in (64, 32)
+             for ln in (False, True)]
+    cases.append(kernel_case(1, False, device, streamed=True))
     for c in cases:
         emit(c)
     gather_table, probe_launches = gather_phase(device)
@@ -560,7 +499,8 @@ def main():
             "launches": large["map_loop_launches"],
             "launches_by_path": by_path("map_loop_launches"),
             "max_abs_err": main_case["max_abs_err"],
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "ms": main_case["ms"], "device_ms": main_case["device_ms"],
+            "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": None,
         },

@@ -24,6 +24,9 @@
 //   gather_rows   one thread per 16-byte piece of an output row: neighbouring
 //                 threads read neighbouring pieces of one table row and write
 //                 neighbouring float4s, so a warp stores 512 contiguous bytes.
+//                 Rows whose width is not a multiple of 4 floats (or tables
+//                 not 16-byte aligned) take the same kernel with 4-byte
+//                 pieces.
 //   gather_lanes  one thread per output element; a warp reads 32 selectors
 //                 and writes 32 floats contiguously, the reads stay inside
 //                 one source row.
@@ -41,10 +44,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename IdxT>
-__global__ void gather_rows_kernel(const float4* __restrict__ table,
+template <typename IdxT, typename Piece>
+__global__ void gather_rows_kernel(const Piece* __restrict__ table,
                                    const IdxT* __restrict__ idx,
-                                   float4* __restrict__ out,
+                                   Piece* __restrict__ out,
                                    long long n_pieces, int c4) {
     long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= n_pieces) return;
@@ -86,6 +89,17 @@ inline bool grid_for(long long n_threads, unsigned* blocks) {
     return true;
 }
 
+template <typename Piece>
+void launch_rows(const void* table, const void* idx, void* out, long long n, int pieces,
+                 int idx64, unsigned blocks, cudaStream_t s) {
+    if (idx64)
+        gather_rows_kernel<int64_t, Piece><<<blocks, kThreads, 0, s>>>(
+            (const Piece*)table, (const int64_t*)idx, (Piece*)out, n * pieces, pieces);
+    else
+        gather_rows_kernel<int32_t, Piece><<<blocks, kThreads, 0, s>>>(
+            (const Piece*)table, (const int32_t*)idx, (Piece*)out, n * pieces, pieces);
+}
+
 }  // namespace
 
 extern "C" {
@@ -94,17 +108,16 @@ extern "C" {
 // live in the Python wrapper; sizes the launch cannot take return
 // cudaErrorInvalidValue. idx64 != 0 selects int64 indices, else int32.
 
+// pieces: 16-byte pieces per row when wide != 0, else floats per row
 int clid_gather_rows(const void* table, const void* idx, void* out,
-                     long long n, int c4, int idx64, void* stream) {
+                     long long n, int pieces, int wide, int idx64, void* stream) {
     unsigned blocks;
-    if (n < 1 || c4 < 1 || !grid_for(n * c4, &blocks)) return (int)cudaErrorInvalidValue;
+    if (n < 1 || pieces < 1 || !grid_for(n * pieces, &blocks)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (idx64)
-        gather_rows_kernel<int64_t><<<blocks, kThreads, 0, s>>>(
-            (const float4*)table, (const int64_t*)idx, (float4*)out, n * c4, c4);
+    if (wide)
+        launch_rows<float4>(table, idx, out, n, pieces, idx64, blocks, s);
     else
-        gather_rows_kernel<int32_t><<<blocks, kThreads, 0, s>>>(
-            (const float4*)table, (const int32_t*)idx, (float4*)out, n * c4, c4);
+        launch_rows<float>(table, idx, out, n, pieces, idx64, blocks, s);
     return (int)cudaGetLastError();
 }
 

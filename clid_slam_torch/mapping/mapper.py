@@ -206,11 +206,6 @@ def make_mapping_fn(
             "the port has the general body (max_outer=0) and the single-batch "
             "body (max_outer=1)"
         )
-    if feature_dim % 4 != 0:
-        raise NotImplementedError(
-            f"feature_dim={feature_dim}: the port's row-gather kernel takes rows "
-            "of a multiple of 4 floats; other widths are not ported yet"
-        )
     bd = max(1, bs // gradient_decimation)
     dec_step = gradient_decimation
     R = max(1, resample_every)

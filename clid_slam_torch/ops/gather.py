@@ -34,7 +34,7 @@ def reset_launches() -> None:
 
 def _declare(lib):
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.clid_gather_rows.argtypes = [vp, vp, vp, ll, ci, ci, vp]
+    lib.clid_gather_rows.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
     lib.clid_gather_lanes.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
     lib.clid_gather_cols.argtypes = [vp, vp, vp, ll, ll, ll, ci, vp]
     for fn in (lib.clid_gather_rows, lib.clid_gather_lanes, lib.clid_gather_cols):
@@ -86,21 +86,24 @@ def _launch(fn, c_fn, table, idx, out, *dims):
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]``: table [R, C] f32 with C a multiple of 4, idx [N]
-    -> [N, C]."""
+    """``table[idx]``: table [R, C] f32, idx [N] -> [N, C]. Rows of a
+    multiple of 4 floats move as 16-byte pieces (the table must then be
+    16-byte aligned), other rows as single floats."""
     _check("gather_rows", table, idx, 2, 1)
     C = table.shape[1]
-    if C % 4 != 0 or C == 0:
-        raise ValueError(f"gather_rows: row width {C} is not a multiple of 4 floats")
+    if C == 0:
+        raise ValueError("gather_rows: the rows are empty")
     if table.device.type == "cpu":
         return gather_rows_reference(table, idx)
-    if table.data_ptr() % 16 != 0:
+    wide = C % 4 == 0
+    if wide and table.data_ptr() % 16 != 0:
         raise ValueError("gather_rows: the table is not 16-byte aligned")
     out = torch.empty((idx.shape[0], C), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
         return out
     lib = _build.load("gather", _declare)
-    return _launch("gather_rows", lib.clid_gather_rows, table, idx, out, idx.shape[0], C // 4)
+    return _launch("gather_rows", lib.clid_gather_rows, table, idx, out, idx.shape[0],
+                   C // 4 if wide else C, int(wide))
 
 
 def gather_lanes(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ tap validity [bd]. Tap j belongs to sample j * dec_step.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -32,10 +32,27 @@ launches = 0
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.clid_map_loop.argtypes = [vp] * 17 + [ci] * 10 + [cf] * 6 + [vp]
+    lib.clid_map_loop.argtypes = [vp] * 16 + [ci] * 13 + [cf] * 6 + [vp]
     lib.clid_map_loop.restype = ci
-    lib.clid_map_loop_blocks.argtypes = [ci, ci]
-    lib.clid_map_loop_blocks.restype = ci
+    lib.clid_map_loop_plan.argtypes = [ci] * 9 + [vp]
+    lib.clid_map_loop_plan.restype = ci
+
+
+class Plan(NamedTuple):
+    """How one call runs on the card (``clid_map_loop_plan``): blocks of
+    the cooperative launch, samples per block, tap capacity per block,
+    whether the slab stays in shared memory, dynamic shared memory bytes
+    and device-memory scratch floats per block (streamed slabs only)."""
+
+    grid: int
+    spc: int
+    ntap: int
+    resident: bool
+    smem_bytes: int
+    work: int
+
+
+_plans: Dict[tuple, Plan] = {}
 
 
 def _load():
@@ -68,6 +85,24 @@ def unflatten_mlp(flat: torch.Tensor, like: MLPParams) -> MLPParams:
     return MLPParams(weights, biases, take(like.w_out), take(like.b_out))
 
 
+def plan(bs: int, K: int, P: int, H: int, n_hidden: int, layer_norm: bool, bd: int,
+         dec_step: int, device, streamed: bool = False) -> Plan:
+    """The kernel's plan for these shapes on ``device`` (cached): the slab
+    stays in shared memory where it fits, unless ``streamed`` (``_launch``)."""
+    key = (bs, K, P, H, n_hidden, bool(layer_norm), bd, dec_step, str(device), streamed)
+    if key not in _plans:
+        lib = _load()
+        out = (ctypes.c_int * 6)()
+        # the plan also sets the kernels' shared-memory limit on the device
+        with torch.cuda.device(device):
+            err = lib.clid_map_loop_plan(bs, K, P, H, n_hidden, int(bool(layer_norm)), bd,
+                                         dec_step, int(streamed), out)
+        if err != 0:
+            raise RuntimeError(f"map_loop plan failed: cudaError {err}")
+        _plans[key] = Plan(out[0], out[1], out[2], bool(out[3]), out[4], out[5])
+    return _plans[key]
+
+
 def _check(name, t, shape, device):
     if t.dtype != torch.float32:
         raise TypeError(f"map_loop: {name} must be float32, got {t.dtype}")
@@ -89,13 +124,24 @@ def map_loop(
     """min(n_iters, max_iters) Adam steps; returns (features, mlp,
     [sdf_loss, eik_loss] of the last step). ``n_iters``, ``mlp_lr``,
     ``denom_inv`` and ``eik_den_inv`` may be device scalars."""
+    args = (f0, w0, encw0, label_op, wsel, wtap, enctapw, vd, mlp, n_iters, max_iters,
+            mlp_lr, denom_inv, eik_den_inv)
+    kw = dict(dec_step=dec_step, sdf_scale=sdf_scale, sigma=sigma, lr=lr, adam_eps=adam_eps,
+              weight_e=weight_e, num_grad_eps=num_grad_eps, layer_norm=layer_norm)
     if f0.device.type == "cpu":
-        return map_loop_reference(
-            f0, w0, encw0, label_op, wsel, wtap, enctapw, vd, mlp, n_iters,
-            max_iters, mlp_lr, denom_inv, eik_den_inv, dec_step=dec_step,
-            sdf_scale=sdf_scale, sigma=sigma, lr=lr, adam_eps=adam_eps,
-            weight_e=weight_e, num_grad_eps=num_grad_eps, layer_norm=layer_norm,
-        )
+        return map_loop_reference(*args, **kw)
+    return _launch(False, *args, **kw)
+
+
+def _launch(
+    streamed: bool, f0, w0, encw0, label_op, wsel, wtap, enctapw, vd, mlp: MLPParams,
+    n_iters, max_iters: int, mlp_lr, denom_inv, eik_den_inv, *,
+    dec_step: int, sdf_scale: float, sigma: float, lr: float,
+    adam_eps: float, weight_e: float, num_grad_eps: float, layer_norm: bool = False,
+) -> Tuple[torch.Tensor, MLPParams, torch.Tensor]:
+    """``map_loop``'s kernel launch. ``streamed`` keeps each block's slab in
+    device memory even where it fits in shared memory, a hook for the card
+    tests and the timing tools; the result does not depend on it."""
     if f0.device.type != "cuda":
         raise ValueError(f"map_loop: unsupported device {f0.device}")
     global launches
@@ -120,14 +166,16 @@ def map_loop(
         ("wtap", wtap, (6, bd, K)), ("enctapw", enctapw, (6, bd, P)), ("vd", vd, (bd,)),
     ):
         _check(name, t, shape, dev)
+    if f0.data_ptr() % 16 != 0:
+        raise ValueError("map_loop: f0 is not 16-byte aligned")
     lib = _load()
+    pl = plan(bs, K, P, H, nh, layer_norm, bd, dec_step, dev, streamed)
     flat = flatten_mlp(mlp)
     npg = flat.numel() + 2
-    nblk = lib.clid_map_loop_blocks(bs, nh)
     f_out = torch.empty_like(f0)
-    mom = torch.empty((2,) + f0.shape, dtype=torch.float32, device=dev)
-    mlp_mom = torch.empty((2, flat.numel()), dtype=torch.float32, device=dev)
-    partials = torch.empty((nblk, npg), dtype=torch.float32, device=dev)
+    mom = torch.empty((2,) + (f0.shape if not pl.resident else (1,)), dtype=torch.float32, device=dev)
+    partials = torch.empty((pl.grid, npg), dtype=torch.float32, device=dev)
+    scratch = torch.empty(max(1, pl.grid * pl.work), dtype=torch.float32, device=dev)
     losses = torch.zeros(2, dtype=torch.float32, device=dev)
 
     def dev_scalar(x):
@@ -140,14 +188,15 @@ def map_loop(
     err = lib.clid_map_loop(
         ptr(f0), ptr(f_out), ptr(mom[0]), ptr(mom[1]), ptr(w0), ptr(encw0),
         ptr(label_op), ptr(wsel), ptr(wtap), ptr(enctapw), ptr(vd),
-        ptr(flat), ptr(mlp_mom[0]), ptr(mlp_mom[1]), ptr(partials), ptr(losses), ptr(scal),
-        bs, K, P, H, nh, int(bool(layer_norm)), bd, dec_step, int(max_iters), nblk,
+        ptr(flat), ptr(partials), ptr(scratch), ptr(losses),
+        ptr(scal), bs, K, P, H, nh, int(bool(layer_norm)), bd, dec_step, int(max_iters),
+        pl.grid, pl.spc, pl.ntap, int(pl.resident),
         sdf_scale, sigma, lr, adam_eps, weight_e, num_grad_eps,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"map_loop kernel launch failed: cudaError {err}")
-    # the scratch tensors may be freed before the kernels run: the caching
+    # the scratch tensors may be freed before the kernel runs: the caching
     # allocator hands their blocks out again only in this stream's order
     launches += 1
     return f_out, unflatten_mlp(flat, mlp), losses

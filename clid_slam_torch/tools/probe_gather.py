@@ -132,9 +132,9 @@ def gather_bytes(kernel: str, table: torch.Tensor, idx: torch.Tensor, out: torch
     (not the whole table: an index vector may leave most of it unread)."""
     i = idx.long()
     width = table.shape[1]
-    if kernel == "gather_rows":  # every 16-byte piece of a touched row
+    if kernel == "gather_rows":  # every element of a touched row
         elems = (torch.unique(i)[:, None] * width
-                 + torch.arange(0, width, 4, device=i.device)).flatten()
+                 + torch.arange(width, device=i.device)).flatten()
     elif kernel == "gather_lanes":
         elems = (torch.arange(table.shape[0], device=i.device)[:, None] * width + i).flatten()
     else:  # gather_cols

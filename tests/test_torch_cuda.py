@@ -15,6 +15,8 @@ that see gradient magnitudes and the Adam state carried between steps:
 features 99th percentile <= 1e-5, losses rtol 1e-4, MLP median <= 1e-5.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -41,11 +43,12 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _inputs(bs, n_hidden, dev, seed=5):
+def _inputs(bs, n_hidden, dev, seed=5, k=K, p=P, h=H, bd=None):
     from clid_slam_torch.models.decoder import MLPParams
 
+    K, P, H = k, p, h
     rng = np.random.default_rng(seed)
-    bd = max(1, bs // DEC // 4)
+    bd = bd or max(1, bs // DEC // 4)
     f = rng.normal(0, 0.1, (bs, K, F))
     w0 = rng.uniform(0, 1, (bs, K))
     w0[rng.uniform(size=(bs, K)) < 0.2] = 0.0
@@ -94,6 +97,135 @@ def test_map_loop_kernel_matches_plain_version(case):
     md = torch.cat([(got - want).abs().flatten() for got, want in
                     zip(kn[1].tensors(), rn[1].tensors())]).cpu().numpy()
     assert md.max() < 3 * LR * max(c["mlp_scale"], 1e-9) + 1e-6 and np.median(md) <= 1e-5
+
+
+def _run_loop(fn, x, n_it, dev, max_iters=20, mlp_lr=LR, **kw):
+    return fn(*x["args"], torch.tensor(n_it, dtype=torch.int32, device=dev), max_iters,
+              mlp_lr, x["denom_inv"], x["eik_inv"], **KW, **kw)
+
+
+def _kernel(streamed):
+    """The kernel's entry: ``map_loop``, or the launch with the slab kept in
+    device memory whatever the plan would choose."""
+    from clid_slam_torch.ops import map_loop as ml
+
+    return functools.partial(ml._launch, True) if streamed else ml.map_loop
+
+
+def _assert_matches_plain(x, n_it, dev, layer_norm, streamed=False):
+    """The kernel against its plain version under chip_smoke.py's limits:
+    one step elementwise (or < 2 lr where the gradient is at the noise
+    floor, as Adam's first step is a sign function there); n steps: features
+    max < 3 lr and p99 <= 1e-5, losses rtol 1e-4, MLP max < 3 lr and median
+    <= 1e-5."""
+    from clid_slam_torch.ops import map_loop as ml
+
+    before = ml.launches
+    fk, mk, lk = _run_loop(_kernel(streamed), x, n_it, dev, layer_norm=layer_norm)
+    fr, mr, lr_ = _run_loop(ml.map_loop_reference, x, n_it, dev, layer_norm=layer_norm)
+    torch.cuda.synchronize()
+    assert ml.launches == before + 1
+    d = (fk - fr).abs()
+    if n_it == 1:
+        step = (fr - x["args"][0]).abs()
+        noise = (step > 0) & (step < 0.999 * LR)
+        assert bool(((d <= 1e-6 + 1e-5 * fr.abs()) | (noise & (d < 2 * LR))).all()), float(d.max())
+    d = d.flatten().cpu().numpy()
+    assert d.max() < 3 * LR and np.quantile(d, 0.99) <= 1e-5, (d.max(), np.quantile(d, 0.99))
+    np.testing.assert_allclose(lk.cpu().numpy(), lr_.cpu().numpy(), rtol=1e-4, atol=0)
+    md = torch.cat([(a - b).abs().flatten() for a, b in zip(mk.tensors(), mr.tensors())])
+    md = md.cpu().numpy()
+    assert md.max() < 3 * LR and np.median(md) <= 1e-5, (md.max(), np.median(md))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer_norm", [False, True], ids=["plain", "ln"])
+@pytest.mark.parametrize("hidden", [32, 64])
+@pytest.mark.parametrize("n_hidden", [1, 2])
+def test_map_loop_every_variant_matches_plain_version(n_hidden, hidden, layer_norm):
+    dev = _cuda()
+    x = _inputs(2048, n_hidden, dev, seed=7, h=hidden)
+    for n_it in (1, 5):
+        _assert_matches_plain(x, n_it, dev, layer_norm)
+
+
+# (bs, K, P, bd or None, streamed): neighbour counts and encoding widths at
+# their limits, a batch that is not a multiple of any grid, the last tap on
+# the last sample, and slabs kept in device memory, forced at a small batch
+# and chosen by the plan at a batch whose slab does not fit on an SM
+EDGE = {
+    "K1_P0": (1024, 1, 0, None, False),
+    "K8_P8": (1024, 8, 8, None, False),
+    "K6_P3_bs1001": (1001, 6, 3, None, False),
+    "last_tap_on_last_sample": (1001, 6, 3, 101, False),
+    "streamed_small": (1001, 8, 3, None, True),
+    "streamed_bs65536_K8": (65536, 8, 3, None, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_map_loop_edge_shapes_match_plain_version(case):
+    from clid_slam_torch.ops import map_loop as ml
+
+    dev = _cuda()
+    bs, k, p, bd, streamed = EDGE[case]
+    x = _inputs(bs, 2 if k == 8 else 1, dev, seed=11, k=k, p=p, bd=bd)
+    if bd is not None:
+        assert (bd - 1) * DEC == bs - 1
+    plan = ml.plan(bs, k, p, H, 2 if k == 8 else 1, True, x["args"][7].shape[0], DEC, dev, streamed)
+    if case.startswith("streamed"):
+        assert not plan.resident and plan.work > 0
+    for n_it in (1, 4):
+        _assert_matches_plain(x, n_it, dev, True, streamed)
+
+
+@pytest.mark.gpu
+def test_map_loop_step_counts():
+    """n_iters 0 passes the features and the MLP through with zero losses;
+    n_iters below max_iters stops there; above it, max_iters caps it."""
+    from clid_slam_torch.ops import map_loop as ml
+
+    dev = _cuda()
+    x = _inputs(1024, 1, dev)
+    f0, mlp0 = x["args"][0], x["args"][8]
+    f, mlp, losses = _run_loop(ml.map_loop, x, 0, dev)
+    assert torch.equal(f, f0) and not bool(losses.any())
+    assert all(torch.equal(a, b) for a, b in zip(mlp.tensors(), mlp0.tensors()))
+    _assert_matches_plain(x, 3, dev, False)
+    capped = _run_loop(ml.map_loop, x, 9, dev, max_iters=4)
+    four = _run_loop(ml.map_loop, x, 4, dev, max_iters=20)
+    for a, b in zip([capped[0], *capped[1].tensors(), capped[2]],
+                    [four[0], *four[1].tensors(), four[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streamed", [False, True], ids=["resident", "streamed"])
+def test_map_loop_repeats_bit_for_bit(streamed):
+    """No float atomics: two calls on the same inputs give the same bits."""
+    dev = _cuda()
+    x = _inputs(16384, 1, dev, seed=3)
+    a = _run_loop(_kernel(streamed), x, 10, dev, layer_norm=True)
+    b = _run_loop(_kernel(streamed), x, 10, dev, layer_norm=True)
+    for u, v in zip([a[0], *a[1].tensors(), a[2]], [b[0], *b[1].tensors(), b[2]]):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+def test_map_loop_plan_at_the_bench_shapes():
+    """One persistent launch: as many blocks as fit on the card at once, at
+    the bench shapes with the slab in shared memory; a slab too large for an
+    SM streams from device memory."""
+    from clid_slam_torch.ops import map_loop as ml
+
+    dev = _cuda()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ml.plan(16384, 6, 3, 64, 1, False, 1638, DEC, dev)
+    assert plan.resident and plan.grid % n_sm == 0 and plan.spc * plan.grid >= 16384
+    assert plan.smem_bytes <= 232448 and plan.work == 0
+    big = ml.plan(65536, 8, 3, 64, 2, True, 1638, DEC, dev)
+    assert not big.resident and big.work > 0
 
 
 @pytest.mark.gpu
@@ -153,10 +285,12 @@ def test_streaming_runs_the_kernel_on_the_card():
 
 
 IDX_TYPES = {"i32": torch.int32, "i64": torch.int64}
-# (table rows, row width, indices): the probes' widths and one width that is
-# neither (a multiple of 4 floats), at sizes that end inside a block
+# (table rows, row width, indices): the probes' widths, one width that is
+# neither (a multiple of 4 floats), and widths that are not multiples of 4
+# (single-float pieces; feature_dim 6), at sizes that end inside a block
 ROW_SHAPES = {"w4": (32768, 4, 131072), "w8": (98304, 8, 98304),
-              "w128": (4096, 128, 4099), "w12_ragged": (1001, 12, 777)}
+              "w128": (4096, 128, 4099), "w12_ragged": (1001, 12, 777),
+              "w6": (98304, 6, 98304), "w3_ragged": (1001, 3, 777)}
 
 
 @pytest.mark.gpu

@@ -185,3 +185,43 @@ def test_flatten_mlp_roundtrip():
     back = tml.unflatten_mlp(flat, mlp)
     for u, v in zip(back.tensors(), mlp.tensors()):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_kernel_launch_refuses_cpu_tensors(streamed):
+    """Only ``map_loop`` runs the plain version on CPU tensors; its kernel
+    launch (and the streamed-slab hook of the card tests) raises there
+    rather than fall back to it."""
+    x = _inputs(256, 1, seed=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tml._launch(
+            streamed, t(x["f"]), t(x["w0"]), t(x["encw0"]), t(x["label_op"]), t(x["wsel"]),
+            t(x["wtap"]), t(x["enctapw"]), t(x["vd"]), mlp_from_numpy(_Mlp(x["mlp"]), "cpu"),
+            torch.tensor(2, dtype=torch.int32), 20, LR, 1.0 / x["denom"], 1.0 / x["eik_den"],
+            layer_norm=True, **KW,
+        )
+
+
+@pytest.mark.parametrize(
+    "n_hidden, hidden, bd, gflop, bound_us",
+    [(1, 64, 1638, 1.2362, 18.45), (2, 64, 1638, 7.6785, 114.60), (1, 64, 1, 0.8025, 11.98)],
+)
+def test_timing_tool_bound_at_the_bench_shapes(n_hidden, hidden, bd, gflop, bound_us):
+    """The operations bound that PERF.md holds K1 against (f32 at 67 TFLOP/s;
+    the bytes, about 7 MB at 3.35 TB/s, bound it less)."""
+    from clid_slam_torch.tools import time_map_loop as tm
+
+    b = tm.bound(n_hidden, tm.N_ITERS, hidden, bd)
+    assert b["bound_by"] == "operations"
+    assert abs(tm.flops(n_hidden, tm.N_ITERS, hidden, bd) / 1e9 - gflop) < 1e-3
+    assert abs(b["bound_ms"] * 1e3 - bound_us) < 0.01
+
+
+def test_timing_tool_inputs_keep_the_first_taps():
+    from clid_slam_torch.tools import time_map_loop as tm
+
+    full = tm.make_inputs(1, seed=1, device="cpu")
+    cut = tm.make_inputs(1, seed=1, device="cpu", bd=5)
+    assert cut["wtap"].shape == (6, 5, tm.K) and cut["vd"].shape == (5,)
+    assert torch.equal(cut["wtap"], full["wtap"][:, :5]) and torch.equal(cut["f0"], full["f0"])
+    assert cut["wtap"].is_contiguous() and cut["enctapw"].is_contiguous()

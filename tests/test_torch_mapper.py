@@ -84,6 +84,8 @@ BODIES = {
     "general": dict(resample_every=3),
     "fallback_zhong": dict(SINGLE, dup_independent=True, loss_type="zhong"),
     "fallback_feature_dim4": dict(SINGLE, dup_independent=True, feature_dim=4),
+    "fallback_feature_dim6": dict(SINGLE, dup_independent=True, feature_dim=6),
+    "static_feature_dim6": dict(SINGLE, dup_independent=False, feature_dim=6),
     "static": dict(SINGLE, dup_independent=False),
     "static_sdf_l2": dict(SINGLE, dup_independent=False, loss_type="sdf_l2"),
 }
@@ -148,8 +150,13 @@ def test_ineligible_fast_body_raises():
     ) == ["geo_mlp_level=3"]
 
 
-def test_feature_dim_not_multiple_of_4_is_unported():
-    """The row-gather kernel takes rows of whole 16-byte pieces; the other
-    widths are listed as not ported and refused by name."""
-    with pytest.raises(NotImplementedError, match="feature_dim=6"):
-        tmp.make_mapping_fn(**dict(MAP_KW, feature_dim=6))
+def test_feature_dim_6_builds_and_only_the_fused_kernel_refuses_it():
+    """The row-gather kernel moves single floats where a row is not a
+    multiple of 4 floats, so a feature_dim-6 mapper builds (and maps as JAX
+    does: the ``*_feature_dim6`` cases of test_mapping_body_matches_jax);
+    only the fused kernel's own eligibility rule names the width."""
+    tmp.make_mapping_fn(**dict(MAP_KW, feature_dim=6))
+    assert tmp.pallas_ineligible_reasons(
+        color_on=False, sem_on=False, weighted_first=True, mlp_bf16=False,
+        mlp_leaky=False, loss_type="bce", feature_dim=6, n_hidden=1,
+    ) == ["feature_dim=6"]

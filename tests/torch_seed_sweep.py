@@ -1,11 +1,14 @@
 """ATE of the JAX and the PyTorch StreamingSlam over decoder/RNG seeds.
 
-Two scenarios:
+Three scenarios:
 - ``tiny`` (default): the 12-frame tiny sequence of tests/test_streaming.py;
 - ``large``: the bench's large configuration and trajectory (50 m world,
   32 m circle, hold and ramp, prune/rehash every 50 frames), 200 frames. On
   the CPU it is cut to 256x24 beams, bs 4096 and small tables; ``--full``
-  runs it uncut (1024x32 beams, bench tables), which is for the card.
+  runs it uncut (1024x32 beams, bench tables), which is for the card;
+- ``small``: the bench's small configuration and 25-frame sequence, uncut
+  (chip_smoke.py's ``stream`` phase at other seeds), the port only and for
+  the card.
 
 Both loops are chaotic (any rounding-level change moves the tiny ATE within
 roughly 0.05-0.2 m, and the large one's slow vertical drift by more), so the
@@ -16,6 +19,8 @@ test; run it by hand:
     JAX_PLATFORMS=cpu python tests/torch_seed_sweep.py --scenario large --seeds 1-4,42
     python tests/torch_seed_sweep.py --scenario large --full --side torch \
         --device cuda --seeds 42,1-3        # on the card; needs no JAX
+    python tests/torch_seed_sweep.py --scenario small --side torch \
+        --device cuda --seeds 42,0-9 --k1 plain
     JAX_PLATFORMS=cpu python tests/torch_seed_sweep.py --scenario large \
         --side torch_jax_draws --seeds 1-42
 
@@ -23,6 +28,11 @@ test; run it by hand:
 package would draw for that seed (its decoder init and its PRNG chain, frame
 by frame), which separates the port's code from its random stream: seed by
 seed its ATE then follows the JAX run's.
+
+``--k1 plain`` maps the tracked frames with the fused loop's plain PyTorch
+version (``ops/map_loop.py:map_loop_reference``) on the port's device in
+place of its kernel: on the card this sets the kernel's rounding against
+the reference's on the same seeds.
 
 Prints one line per seed and side, then one JSON summary line.
 """
@@ -63,6 +73,19 @@ def _scenario(name, side, full):
         from clid_slam_tpu.pipeline.synthetic import generate_sequence, large_world
     else:
         from clid_slam_torch.pipeline.synthetic import generate_sequence, large_world
+    if name == "small":
+        if side != "torch":
+            raise SystemExit("--scenario small runs the port alone (--side torch)")
+        from clid_slam_torch.pipeline import bench_cases as bc
+
+        seq = bc.make_sequence(False, 25)
+
+        def make_small(seed):
+            cfg = bc.build_config(large=False)
+            cfg.seed = seed
+            return cfg
+
+        return make_small, seq, bc.initial_velocity(seq, False), bc.TOTAL_FRAMES
     if name == "tiny":
         from torch_parity import port_config, tiny_config  # imports JAX's Config
 
@@ -149,9 +172,11 @@ def main():
     ap.add_argument("--seeds", default="0-7", help="e.g. 0-7 or 42,1-3")
     ap.add_argument("--side", choices=("both", "jax", "torch", "torch_jax_draws"),
                     default="both")
-    ap.add_argument("--scenario", choices=("tiny", "large"), default="tiny")
+    ap.add_argument("--scenario", choices=("tiny", "large", "small"), default="tiny")
     ap.add_argument("--full", action="store_true", help="large scenario uncut (for the card)")
     ap.add_argument("--device", default="cpu", help="the port's device")
+    ap.add_argument("--k1", choices=("kernel", "plain"), default="kernel",
+                    help="the port's fused mapping loop: its kernel or its plain version")
     args = ap.parse_args()
 
     import torch
@@ -159,6 +184,11 @@ def main():
     from clid_slam_torch.utils import metrics
 
     torch.set_num_threads(2)
+    if args.k1 == "plain":
+        from clid_slam_torch.mapping import mapper as port_mapper
+        from clid_slam_torch.ops.map_loop import map_loop_reference
+
+        port_mapper.map_loop = map_loop_reference
     sides = ("jax", "torch") if args.side == "both" else (args.side,)
     ate = {s: [] for s in sides}
     for side in sides:
@@ -186,11 +216,12 @@ def main():
                   f"ARE {m['are_rmse_deg']:.3f} deg, failed {out['failed']}, "
                   f"last error xyz {np.round(last, 3).tolist()}", flush=True)
     print(json.dumps({
-        s: {"n": len(v), "ate_mean_m": float(np.mean(v)), "ate_std_m": float(np.std(v)),
+        s: {"n": len(v), "ate_m": [float(a) for a in v],
+            "ate_mean_m": float(np.mean(v)), "ate_std_m": float(np.std(v)),
             "ate_min_m": float(np.min(v)), "ate_max_m": float(np.max(v)),
             "over_0.2m": int(np.sum(np.asarray(v) >= 0.2))}
         for s, v in ate.items()
-    } | {"scenario": args.scenario, "full": args.full, "device": args.device,
+    } | {"scenario": args.scenario, "full": args.full, "device": args.device, "k1": args.k1,
          "torch_threads": torch.get_num_threads()}))
 
 
