@@ -17,10 +17,13 @@ Phases, each printing one JSON line:
           beside it as device_ms, plain ms and the card's bound;
   gather  the gather probe (clid_slam_torch/tools/probe_gather.py): the
           row, lane and column gather kernels at the six probe shapes and
-          at the mapper's shapes (int64 indices; feature_dim 8, and 6 for
-          rows that move as single floats), each equal to its
-          plain version bit for bit, with kernel, plain and library-call ms
-          and the card's bound;
+          at the main path's: the hash mirrors (2^22 and 2^21 rows of 4
+          floats, neighbour-cell buckets) and the mapper's work slab (int64
+          indices; feature_dim 8, and 6 for rows that move as single
+          floats), each equal to its plain version bit for bit, with
+          kernel, plain and library-call ms (and table[idx] at the mirror
+          shapes) and the card's bound; then the host time of one call
+          of each gather wrapper;
   stream  the port's StreamingSlam on the bench's small sequence
           (1024x32 beams, 25 frames as bench.py runs them: 10 warm-up
           frames, 15 timed), with ATE/ARE against ground truth and the
@@ -214,7 +217,10 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
         raise AssertionError(f"ATE {m['ate_rmse_m']} >= 0.2 m")
     if launches != (tracked if fused else 0):
         raise AssertionError(f"map_loop launched {launches} times for {tracked} tracked frames")
-    if gathers["gather_rows"] < 2 * tracked:
+    # per tracked frame at least: the mapper's two slab gathers, and the
+    # mirror gathers of the tracker's and the mapper's probes, the insert and
+    # the labels
+    if gathers["gather_rows"] < 6 * tracked:
         raise AssertionError(
             f"gather_rows launched {gathers['gather_rows']} times for {tracked} tracked frames"
         )
@@ -296,6 +302,41 @@ def prune_check(system, n_frames):
     return res
 
 
+def launch_attribution(prof, n_profiled):
+    """Device time per frame of every device activity, by the ``frame.*``
+    range whose host span holds the runtime call that launched it. The
+    profiler ties a kernel to a stage only through a torch op; a kernel
+    launched through ctypes (the hand kernels) has none, so its launch's
+    host time places it here. Returns (ms by stage, with "outside" and
+    "unlinked"; the hand kernels' ms and launches by stage)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    ranges = [(e.start_ns(), e.end_ns(), e.name()) for e in events
+              if e.name().startswith("frame.") and e.device_type() != cuda]
+    launch_at = {e.correlation_id(): e.start_ns() for e in events if e.device_type() != cuda
+                 and any(w in e.name() for w in ("Launch", "Memcpy", "Memset"))}
+    by_stage, hand = {}, {}
+    for e in events:
+        # device activity only: the frame.* ranges are mirrored onto the
+        # device's timeline as annotations, which are no work
+        if e.device_type() != cuda or e.is_user_annotation() or e.name().startswith("frame."):
+            continue
+        t = launch_at.get(e.correlation_id(), launch_at.get(e.linked_correlation_id()))
+        stage = "unlinked" if t is None else next(
+            (name for lo, hi, name in ranges if lo <= t <= hi), "outside")
+        ms = e.duration_ns() / 1e6 / n_profiled
+        by_stage[stage] = by_stage.get(stage, 0.0) + ms
+        kernel = re.search(r"(map_loop|gather_rows|gather_lanes|gather_cols)_kernel", e.name())
+        if kernel:
+            row = hand.setdefault(f"{kernel.group(1)} @ {stage}", {"device_ms_per_frame": 0.0,
+                                                                  "launches_per_frame": 0.0})
+            row["device_ms_per_frame"] += ms
+            row["launches_per_frame"] += 1 / n_profiled
+    return by_stage, hand
+
+
 def profile_phase(large, n_frames, n_profiled, device):
     """torch.profiler over the last ``n_profiled`` frames of a fresh run:
     device time per stage range and per kernel, and the device busy share
@@ -307,7 +348,8 @@ def profile_phase(large, n_frames, n_profiled, device):
     for i in range(n_frames - n_profiled):
         system.process_frame(i, seq.scans[i], seq.imu_windows[i])
     system.block()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True,
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         for i in range(n_frames - n_profiled, n_frames):
             system.process_frame(i, seq.scans[i], seq.imu_windows[i])
@@ -334,10 +376,23 @@ def profile_phase(large, n_frames, n_profiled, device):
     busy_ms = sum(self_dev_ms(e) for e in kernels)
     top = [{"name": e.key[:80], "device_ms_per_frame": self_dev_ms(e) / n_profiled,
             "calls_per_frame": e.count / n_profiled} for e in kernels[:15]]
+    launched, hand = launch_attribution(prof, n_profiled)
+    for name, ms in launched.items():
+        stages.setdefault(name, {})["launched_device_ms_per_frame"] = ms
+    # PyTorch's own row gathers by input shape (the hash-mirror gathers are
+    # [2^21-2^22, 4] tables), with the device time of their kernels
+    index_rows = [
+        {"op": e.key, "input_shapes": e.input_shapes, "device_ms_per_frame": dev_ms(e) / n_profiled,
+         "calls_per_frame": e.count / n_profiled}
+        for e in prof.key_averages(group_by_input_shape=True)
+        if e.key in ("aten::index", "aten::index_select") and dev_ms(e) > 0
+    ]
+    index_rows.sort(key=lambda r: r["device_ms_per_frame"], reverse=True)
     res = {"phase": "profile", "large": large, "frames": n_profiled, "wall_ms_per_frame": wall_ms / n_profiled,
            "device_busy_ms_per_frame": busy_ms / n_profiled,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-           "stages": stages, "top_kernels": top}
+           "stages": stages, "hand_kernels_by_stage": hand, "top_kernels": top,
+           "index_ops": index_rows[:12]}
     emit(res)
     return res
 
@@ -369,56 +424,38 @@ def ptxas_summary(report):
     return out
 
 
-def mapper_gather_cases():
-    """gather_rows at the two shapes the mapper's single-batch body gives
-    it on the bench configuration, made from a seed: the work slab out of
-    the map's features (ascending unique map rows, the tail padded with the
-    sentinel row) and the expanded features out of the work slab (the
-    batch's kNN references in batch order). Both index vectors are int64.
-    The same expanded-feature gather at feature_dim 6, whose rows move as
-    single floats."""
-    rng = np.random.default_rng(7)
-    cap, w, n_rows = 1 << 18, BS * K, 24000
-    feats = rng.normal(0, 0.1, (cap + 1, F)).astype(np.float32)
-    src_rows = np.full(w, cap, dtype=np.int64)
-    src_rows[:n_rows] = np.sort(rng.choice(cap, n_rows, replace=False))
-    work = feats[src_rows]
-    local_idx = rng.integers(0, n_rows, w).astype(np.int64)
-    site = "clid_slam_torch/mapping/mapper.py single_batch_body"
-    return [
-        dict(variant="mapper work0", kernel="gather_rows", table=feats, idx=src_rows,
-             replaces=site),
-        dict(variant="mapper f0", kernel="gather_rows", table=work, idx=local_idx,
-             replaces=site),
-        dict(variant="mapper f0 feature_dim 6", kernel="gather_rows",
-             table=np.ascontiguousarray(work[:, :6]), idx=local_idx, replaces=site),
-    ]
-
-
 def gather_phase(device):
-    """The probe entry point's six variants and the mapper's three shapes.
-    Returns the rows and the probe run's launch counts."""
+    """The probe entry point's six variants and the main path's shapes (the
+    hash mirrors and the mapper's work slab), and the host time of one call
+    of each wrapper. Returns the rows and the probe run's launch counts."""
     from clid_slam_torch.ops import gather as gt
     from clid_slam_torch.tools import probe_gather as pg
 
     gt.reset_launches()
-    rows = pg.run(device)
+    rows = pg.run(device, main_path=True)
     probe_launches = dict(gt.launches)
-    rows += [pg.run_case(c, device) for c in mapper_gather_cases()]
     emit({"phase": "gather", "reps": 200, "probe_launches": probe_launches, "rows": rows,
           "tolerance": "exact: torch.equal with the plain version"})
+    emit(pg.host_cost(device))
     for name, count in probe_launches.items():
         if count == 0:
             raise AssertionError(f"the probe entry point never launched {name}")
     return rows, probe_launches
 
 
-def gather_kernel_entry(name, rows, main_variant, launches, by_path):
+def gather_kernel_entry(name, rows, main_variant, launches, by_path, mirror_variant=None):
     """The summary entry of one gather kernel: times and bound of its row at
-    ``main_variant``, the largest error over all of its rows."""
+    ``main_variant``, the largest error over all of its rows, and beside
+    them the times of its row at ``mirror_variant``."""
     mine = [r for r in rows if r["kernel"] == name]
     main = next(r for r in mine if r["variant"] == main_variant)
-    return {
+    extra = {}
+    if mirror_variant:
+        m = next(r for r in mine if r["variant"] == mirror_variant)
+        extra["mirror_variant"] = {k: m[k] for k in (
+            "variant", "table", "idx", "idx_dtype", "ms", "graph_ms", "bound_ms", "library_ms",
+            "library_graph_ms", "index_ms", "index_graph_ms")}
+    return {**extra, "main_variant": main_variant,
         "name": name, "route": "cuda", "source": "clid_slam_torch/csrc/gather.cu",
         "replaces": "; ".join(sorted({r["replaces"] for r in mine if r["replaces"].startswith("scripts/")})),
         "launches": launches, "launches_by_path": by_path,
@@ -507,6 +544,7 @@ def main():
         gather_kernel_entry(
             "gather_rows", gather_table, "mapper f0", large["gather_rows_launches"],
             dict(by_path("gather_rows_launches"), probe=probe_launches["gather_rows"]),
+            mirror_variant="mirror mapper probe",
         ),
         gather_kernel_entry("gather_lanes", gather_table, "K4 gather_b",
                             probe_launches["gather_lanes"],

@@ -11,31 +11,49 @@
 //                 (take_along_axis on the last axis)
 //   gather_cols   scripts/probe_pallas_gather2.py  make_c
 //                 (transposed table [8, 98304])
-// and gather_rows is the mapper's per-step gather of the work slab
-// (clid_slam_torch/mapping/mapper.py).
+// gather_rows also runs the main path's gathers: the mapper's work slab
+// (clid_slam_torch/mapping/mapper.py) and the hash-mirror probes
+// (models/neural_map.py neighborhood_probe and insert_points,
+// models/local_map.py region_specific_sdf).
 //
 // What bounds them on the H100: bytes. A gather does no arithmetic; it reads
 // each index once, touches the table and writes each output element once.
-// At the shapes above every table is at most 8.4 MB and stays in the 50 MB
-// L2, so the HBM byte count is a floor rather than a target and a launch is
-// dominated by its own latency.
 //
-// Design: the simplest form that keeps memory transactions wide.
-//   gather_rows   one thread per 16-byte piece of an output row: neighbouring
-//                 threads read neighbouring pieces of one table row and write
-//                 neighbouring float4s, so a warp stores 512 contiguous bytes.
-//                 Rows whose width is not a multiple of 4 floats (or tables
-//                 not 16-byte aligned) take the same kernel with 4-byte
-//                 pieces.
+// gather_rows, designed for the hash mirrors: 16-byte rows picked at random
+// out of a 64 MB (2^22 rows) or 32 MB (2^21) table, 0.07-1.33 M lookups a
+// call, up to 21 MB written. Each lookup costs one 32-byte sector of device
+// memory behind a dependent pair of loads (index, then row); its bound is
+// those sectors, the indices and the output at 3.35 TB/s.
+//   - One 16-byte piece a thread (single floats for rows that are not a
+//     multiple of 4 floats: feature_dim 6); the grid holds as many blocks
+//     as the card keeps resident (8 of 256 threads on each SM) and strides
+//     over the pieces.
+//   - Table rows are read with an L2 evict-last policy, the indices with
+//     streaming loads (__ldcs) and the output stored streaming (__stcs), so
+//     the rows that neighbouring points share stay in the 50 MB L2 while
+//     the output and the indices pass through it.
+//     The main path's kernels that follow take the same time after it as
+//     after PyTorch's gather (profile, PERF.md section 6).
+//   - No shared-memory staging: a gather reuses nothing within a block.
+//   Measured (PERF.md section 6, tools/probe_gather.py --main-path on an
+//   H100 80GB HBM3 at 700 W, cold, against the kernel before it, which had
+//   plain loads and one thread a piece with no grid stride, in one run):
+//   13.6 us at the mapper's probe (1.33 M lookups, bound 9.7 us; before
+//   14.6; PyTorch's table[idx] 800), 11.1 at the local map's (bound 7.0;
+//   before 11.5-11.9), 7.5-7.7 at the tracker's (bound 4.9; the same as
+//   before), 2.0 at the insert's (65 k lookups: launch latency); 18
+//   registers a thread. Several pieces a thread with all their loads in
+//   flight before any store, the design first planned, was slower at every
+//   shape: with the dependent index load in each chain, more resident warps
+//   hide the latency better than fewer, longer threads.
 //   gather_lanes  one thread per output element; a warp reads 32 selectors
 //                 and writes 32 floats contiguously, the reads stay inside
 //                 one source row.
 //   gather_cols   one thread per output element, index j fastest: stores are
 //                 contiguous, the index vector is re-read once per table row
 //                 from L1/L2.
-// No shared-memory staging, cp.async or TMA yet. The index type (int32 or
-// int64) is a template argument. Indices are not checked or clamped: an index
-// outside the table is the caller's error.
+// The index type (int32 or int64) is a template argument. Indices are not
+// checked or clamped: an index outside the table is the caller's error.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,18 +61,49 @@
 namespace {
 
 constexpr int kThreads = 256;
+// blocks an SM holds at once (2048 threads); __launch_bounds__ keeps the
+// registers low enough for that
+constexpr int kBlocksPerSm = 2048 / kThreads;
 
+__device__ __forceinline__ unsigned long long l2_evict_last() {
+    unsigned long long policy;
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+    return policy;
+}
+
+// read-only table loads that ask the L2 to keep the line
+__device__ __forceinline__ float4 load_kept(const float4* p, unsigned long long policy) {
+    float4 v;
+    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p), "l"(policy));
+    return v;
+}
+
+__device__ __forceinline__ float load_kept(const float* p, unsigned long long policy) {
+    float v;
+    asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(policy));
+    return v;
+}
+
+__device__ __forceinline__ long long load_index(const int32_t* p) { return __ldcs(p); }
+__device__ __forceinline__ long long load_index(const int64_t* p) {
+    return __ldcs(reinterpret_cast<const long long*>(p));
+}
+
+// out piece t = table piece idx[t / c4] * c4 + t % c4, for t < n_pieces:
+// one piece a thread, the grid striding over the pieces, each store
+// coalesced across the warp.
 template <typename IdxT, typename Piece>
-__global__ void gather_rows_kernel(const Piece* __restrict__ table,
-                                   const IdxT* __restrict__ idx,
-                                   Piece* __restrict__ out,
-                                   long long n_pieces, int c4) {
-    long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n_pieces) return;
-    long long row = t / c4;
-    int piece = (int)(t - row * c4);
-    long long src = (long long)idx[row];
-    out[t] = __ldg(table + src * c4 + piece);
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+gather_rows_kernel(const Piece* __restrict__ table, const IdxT* __restrict__ idx,
+                   Piece* __restrict__ out, long long n_pieces, int c4) {
+    const unsigned long long policy = l2_evict_last();
+    const long long stride = (long long)gridDim.x * kThreads;
+    for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < n_pieces; t += stride) {
+        const long long row = c4 == 1 ? t : t / c4;
+        const long long src = load_index(idx + row) * c4 + (t - row * c4);
+        __stcs(out + t, load_kept(table + src, policy));
+    }
 }
 
 template <typename IdxT>
@@ -89,15 +138,20 @@ inline bool grid_for(long long n_threads, unsigned* blocks) {
     return true;
 }
 
-template <typename Piece>
-void launch_rows(const void* table, const void* idx, void* out, long long n, int pieces,
-                 int idx64, unsigned blocks, cudaStream_t s) {
-    if (idx64)
-        gather_rows_kernel<int64_t, Piece><<<blocks, kThreads, 0, s>>>(
-            (const Piece*)table, (const int64_t*)idx, (Piece*)out, n * pieces, pieces);
-    else
-        gather_rows_kernel<int32_t, Piece><<<blocks, kThreads, 0, s>>>(
-            (const Piece*)table, (const int32_t*)idx, (Piece*)out, n * pieces, pieces);
+// a grid of as many blocks as the card holds at once (kBlocksPerSm a SM),
+// fewer for a short call
+template <typename IdxT, typename Piece>
+int launch_rows(const void* table, const void* idx, void* out, long long n_pieces, int c4,
+                cudaStream_t s) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (n_pieces + kThreads - 1) / kThreads;
+    const long long cap = (long long)sms * kBlocksPerSm;
+    gather_rows_kernel<IdxT, Piece><<<(unsigned)(blocks < cap ? blocks : cap), kThreads, 0, s>>>(
+        (const Piece*)table, (const IdxT*)idx, (Piece*)out, n_pieces, c4);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -109,16 +163,16 @@ extern "C" {
 // cudaErrorInvalidValue. idx64 != 0 selects int64 indices, else int32.
 
 // pieces: 16-byte pieces per row when wide != 0, else floats per row
-int clid_gather_rows(const void* table, const void* idx, void* out,
-                     long long n, int pieces, int wide, int idx64, void* stream) {
-    unsigned blocks;
-    if (n < 1 || pieces < 1 || !grid_for(n * pieces, &blocks)) return (int)cudaErrorInvalidValue;
+int clid_gather_rows(const void* table, const void* idx, void* out, long long n, int pieces,
+                     int wide, int idx64, void* stream) {
+    if (n < 1 || pieces < 1 || n > (1LL << 40)) return (int)cudaErrorInvalidValue;
+    const long long n_pieces = n * pieces;
     cudaStream_t s = (cudaStream_t)stream;
     if (wide)
-        launch_rows<float4>(table, idx, out, n, pieces, idx64, blocks, s);
-    else
-        launch_rows<float>(table, idx, out, n, pieces, idx64, blocks, s);
-    return (int)cudaGetLastError();
+        return idx64 ? launch_rows<int64_t, float4>(table, idx, out, n_pieces, pieces, s)
+                     : launch_rows<int32_t, float4>(table, idx, out, n_pieces, pieces, s);
+    return idx64 ? launch_rows<int64_t, float>(table, idx, out, n_pieces, pieces, s)
+                 : launch_rows<int32_t, float>(table, idx, out, n_pieces, pieces, s);
 }
 
 int clid_gather_lanes(const void* src, const void* sel, void* out,

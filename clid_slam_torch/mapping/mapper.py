@@ -25,11 +25,12 @@ import warnings
 from typing import List, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models import decoder as dec
 from ..models import neural_map as nm
 from ..mapping.pool import ReplayPool, sample_batch_indices, split_rows
-from ..ops.gather import gather_rows
+from ..ops.gather import gather_rows, gather_rows_nd
 from ..ops.map_loop import map_loop
 from ..ops.voxel import grid_coords, voxel_hash
 
@@ -79,8 +80,17 @@ def pallas_ineligible_reasons(
     return reasons
 
 
-def make_sdf_loss(label, weight, bvalid, *, loss_type, sigma, loss_weight_on):
-    """Main SDF loss: ``loss(pred)`` = masked mean over live rows."""
+def make_sdf_loss(label, weight, bvalid, *, loss_type, sigma, loss_weight_on,
+                  saturated_grad=True):
+    """Main SDF loss: ``loss(pred)`` = masked mean over live rows.
+
+    ``bce`` is optax's ``sigmoid_binary_cross_entropy``, the JAX package's
+    loss: where the logit z and the target saturate together (free space
+    far in front of a surface) its gradient, -sigmoid(-z), stays a few
+    1e-9, and Adam (eps 1e-15) steps on it. ``saturated_grad=False`` takes
+    relu(z) - z t + log1p(e^-|z|) instead, whose gradient rounds to 0
+    there, as the fused kernel's does; only frame 0's general body uses it
+    (ROADMAP C)."""
     w_abs = torch.abs(weight) * bvalid
     denom = torch.clamp(torch.sum(bvalid), min=1.0)
     w = w_abs if loss_weight_on else bvalid
@@ -89,6 +99,8 @@ def make_sdf_loss(label, weight, bvalid, *, loss_type, sigma, loss_weight_on):
 
         def per(pred):
             z = pred / sigma
+            if saturated_grad:
+                return -target * F.logsigmoid(z) - (1.0 - target) * F.logsigmoid(-z)
             return torch.relu(z) - z * target + torch.log1p(torch.exp(-torch.abs(z)))
 
     elif loss_type == "zhong":
@@ -135,7 +147,7 @@ class _SlabGatherSorted(torch.autograd.Function):
     @staticmethod
     def forward(ctx, slab, idx2d, order, run_lengths):
         ctx.save_for_backward(order, run_lengths)
-        return gather_rows(slab, idx2d.reshape(-1)).reshape(idx2d.shape + slab.shape[1:])
+        return gather_rows_nd(slab, idx2d)
 
     @staticmethod
     def backward(ctx, g):
@@ -286,12 +298,13 @@ def make_mapping_fn(
             enc_tapw=torch.sum(enc_tap * w_tap[..., None], dim=2),
         )
 
-    def make_loss_fn(c: BatchCache, expanded: bool = False):
+    def make_loss_fn(c: BatchCache, expanded: bool = False, saturated_grad: bool = True):
         """``loss_fn(params, mlp)``; ``params`` is the [W, F] work slab or,
-        with ``expanded``, the [bs, k, F] per-reference features."""
+        with ``expanded``, the [bs, k, F] per-reference features;
+        ``saturated_grad`` as in ``make_sdf_loss``."""
         sdf_loss_of = make_sdf_loss(
             c.label, c.weight, c.bvalid, loss_type=loss_type, sigma=sigma,
-            loss_weight_on=loss_weight_on,
+            loss_weight_on=loss_weight_on, saturated_grad=saturated_grad,
         )
         eik_den = torch.clamp(torch.sum(c.vd), min=1.0)
 
@@ -396,7 +409,7 @@ def make_mapping_fn(
                 make_loss_fn(c), work0, mlp, int(inner_n), mlp_lr
             )
         else:
-            f0 = gather_rows(work0, c.local_idx.reshape(-1)).reshape(bs, knn_k, -1)
+            f0 = gather_rows_nd(work0, c.local_idx)
             reasons = pallas_ineligible_reasons(
                 color_on=color_on, sem_on=sem_on, weighted_first=weighted_first,
                 mlp_bf16=mlp_bf16, mlp_leaky=mlp_leaky, loss_type=loss_type,
@@ -459,8 +472,11 @@ def make_mapping_fn(
             else:
                 mw, vw = gather_rows(m_slab, c.src_rows), gather_rows(v_slab, c.src_rows)
             inner_n = min(R, n_iters - o * R)
+            # frame 0 keeps the rule of the fused kernel at saturated
+            # samples (make_sdf_loss; ROADMAP C)
             work, mw, vw, mlp_ps, mlp_m, mlp_v, losses = adam_steps(
-                make_loss_fn(c), work, mw, vw, mlp_ps, mlp_m, mlp_v, o * R, inner_n, mlp_lr
+                make_loss_fn(c, saturated_grad=False), work, mw, vw, mlp_ps, mlp_m, mlp_v,
+                o * R, inner_n, mlp_lr,
             )
             # write back (duplicate src_rows only at the zeroed sentinel)
             feats[c.src_rows] = work

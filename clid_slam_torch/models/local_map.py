@@ -9,6 +9,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from ..ops.gather import gather_rows_nd
 from ..ops.plane_fit import fit_plane_masked
 from ..ops.scatter import scatter_set
 from ..ops.voxel import (
@@ -126,7 +127,7 @@ def region_specific_sdf(
     g = grid_coords(points, resolution)
     cells = g[:, None, :] + offs[None, :, :]
     h = voxel_hash(cells, hsize)
-    mir = state.hash_mirror[h]  # [N,7,4]
+    mir = gather_rows_nd(state.hash_mirror, h)  # [N,7,4]
     nb = mir[..., :3]
     dist = torch.linalg.norm(nb - points[:, None, :], dim=-1)
     dist = torch.clamp(dist, max=maxr)

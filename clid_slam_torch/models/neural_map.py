@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.gather import gather_rows_nd
 from ..ops.scatter import compact_indices, scatter_set, segment_add
 from ..utils import lie
 from ..ops.voxel import (
@@ -138,7 +139,7 @@ def insert_points(
 
     g = grid_coords(points, resolution)
     h = voxel_hash(g, hsize)
-    mir = state.hash_mirror[h]
+    mir = gather_rows_nd(state.hash_mirror, h)
     occupied = mir[..., 0] < _EMPTY_POS * 0.5
     dist2 = torch.sum((mir[..., :3] - points) ** 2, dim=-1)
     collision = occupied & (dist2 > 3.0 * resolution * resolution)
@@ -213,7 +214,7 @@ def neighborhood_probe(
     mirror rows) over the K-cell neighborhood with one mirror row gather."""
     hsize = state.hash_table.shape[0]
     h = neighbor_hash_soa(points, nb_offs, resolution, hsize)
-    mir = state.hash_mirror[h]
+    mir = gather_rows_nd(state.hash_mirror, h)
     d2 = torch.sum((mir[..., :3] - points[:, None, :]) ** 2, dim=-1)
     valid = d2 <= max_valid_dist2
     if time_filtering:

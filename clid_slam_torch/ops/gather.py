@@ -13,6 +13,13 @@ Each wrapper dispatches on the table's device: CUDA tensors launch the
 kernel (or raise), CPU tensors run the plain version. There is no fallback
 from one to the other. Indices are int32 or int64 and are not checked or
 clamped: an index outside the table is the caller's error.
+
+A call on the card costs host time beside the kernel's few microseconds,
+so the launch path is kept short: the library's functions are bound once,
+pointers and the current stream pass to ctypes as plain ints (the stream
+from ``torch._C._cuda_getCurrentRawStream``, a CUDA build's own accessor,
+so no ``Stream`` object is made per call), and the checks are those the
+kernels need.
 """
 
 from __future__ import annotations
@@ -41,6 +48,19 @@ def _declare(lib):
         fn.restype = ci
 
 
+_fns = {}  # kernel name -> bound C function, filled at the first launch
+
+
+def _fn(name):
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _build.load("gather", _declare)
+        for k in launches:
+            _fns[k] = getattr(lib, "clid_" + k)
+        fn = _fns[name]
+    return fn
+
+
 def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long()]
 
@@ -54,9 +74,9 @@ def gather_cols_reference(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Ten
 
 
 def _check(fn, table, idx, table_dim, idx_dim):
-    if table.dtype != torch.float32:
+    if table.dtype is not torch.float32:
         raise TypeError(f"{fn}: the table must be float32, got {table.dtype}")
-    if idx.dtype not in (torch.int32, torch.int64):
+    if idx.dtype is not torch.int32 and idx.dtype is not torch.int64:
         raise TypeError(f"{fn}: indices must be int32 or int64, got {idx.dtype}")
     if table.dim() != table_dim or idx.dim() != idx_dim:
         raise ValueError(
@@ -65,19 +85,17 @@ def _check(fn, table, idx, table_dim, idx_dim):
         )
     if idx.device != table.device:
         raise ValueError(f"{fn}: indices are on {idx.device}, the table on {table.device}")
-    if table.device.type not in ("cpu", "cuda"):
+    if not table.is_cuda and table.device.type != "cpu":
         raise ValueError(f"{fn}: unsupported device {table.device}")
 
 
-def _launch(fn, c_fn, table, idx, out, *dims):
+def _launch(fn, table, idx, out, *dims):
     """Launch one kernel of csrc/gather.cu on the current stream."""
-    for name, x in (("table", table), ("indices", idx)):
-        if not x.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous")
-    err = c_fn(
-        ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(idx.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), *dims, int(idx.dtype == torch.int64),
-        ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{fn}: the table and the indices must be contiguous")
+    err = _fn(fn)(
+        table.data_ptr(), idx.data_ptr(), out.data_ptr(), *dims,
+        torch._C._cuda_getCurrentRawStream(table.get_device()),
     )
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: cudaError {err}")
@@ -93,17 +111,23 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     C = table.shape[1]
     if C == 0:
         raise ValueError("gather_rows: the rows are empty")
-    if table.device.type == "cpu":
+    if not table.is_cuda:
         return gather_rows_reference(table, idx)
     wide = C % 4 == 0
     if wide and table.data_ptr() % 16 != 0:
         raise ValueError("gather_rows: the table is not 16-byte aligned")
-    out = torch.empty((idx.shape[0], C), dtype=torch.float32, device=table.device)
-    if out.numel() == 0:
+    n = idx.shape[0]
+    out = table.new_empty((n, C))
+    if n == 0:
         return out
-    lib = _build.load("gather", _declare)
-    return _launch("gather_rows", lib.clid_gather_rows, table, idx, out, idx.shape[0],
-                   C // 4 if wide else C, int(wide))
+    return _launch("gather_rows", table, idx, out, n, C // 4 if wide else C, int(wide),
+                   int(idx.dtype is torch.int64))
+
+
+def gather_rows_nd(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for indices of any shape: [*idx.shape, C] through
+    ``gather_rows`` (the hash-mirror probes gather [N, K] buckets)."""
+    return gather_rows(table, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
 
 
 def gather_lanes(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -114,29 +138,23 @@ def gather_lanes(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"gather_lanes: {sel.shape[0]} selector rows for {src.shape[0]} source rows"
         )
-    if src.device.type == "cpu":
+    if not src.is_cuda:
         return gather_lanes_reference(src, sel)
-    out = torch.empty(sel.shape, dtype=torch.float32, device=src.device)
+    out = src.new_empty(sel.shape)
     if out.numel() == 0:
         return out
-    lib = _build.load("gather", _declare)
-    return _launch(
-        "gather_lanes", lib.clid_gather_lanes, src, sel, out,
-        src.shape[0], src.shape[1], sel.shape[1],
-    )
+    return _launch("gather_lanes", src, sel, out, src.shape[0], src.shape[1], sel.shape[1],
+                   int(sel.dtype is torch.int64))
 
 
 def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[f, j] = table_t[f, idx[j]]``: table_t [F, W] f32, idx [N]
     -> [F, N]."""
     _check("gather_cols", table_t, idx, 2, 1)
-    if table_t.device.type == "cpu":
+    if not table_t.is_cuda:
         return gather_cols_reference(table_t, idx)
-    out = torch.empty((table_t.shape[0], idx.shape[0]), dtype=torch.float32, device=table_t.device)
+    out = table_t.new_empty((table_t.shape[0], idx.shape[0]))
     if out.numel() == 0:
         return out
-    lib = _build.load("gather", _declare)
-    return _launch(
-        "gather_cols", lib.clid_gather_cols, table_t, idx, out,
-        table_t.shape[0], table_t.shape[1], idx.shape[0],
-    )
+    return _launch("gather_cols", table_t, idx, out, table_t.shape[0], table_t.shape[1],
+                   idx.shape[0], int(idx.dtype is torch.int64))

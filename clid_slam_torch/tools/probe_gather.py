@@ -1,7 +1,8 @@
 """Gather probe: the port's counterpart of scripts/probe_pallas_gather.py
 and scripts/probe_pallas_gather2.py.
 
-    python -m clid_slam_torch.tools.probe_gather [--device cpu] [--shrink N]
+    python -m clid_slam_torch.tools.probe_gather [--device cpu] [--shrink N] [--main-path]
+        [--host-cost]
 
 Makes the two scripts' inputs from their seeds with numpy, runs the six
 variants through the port's gather kernels (``ops/gather.py``), requires
@@ -22,6 +23,16 @@ counts. ``graph_hot_ms`` and ``library_graph_hot_ms`` replay the calls on
 one set of tensors: every table here fits the L2 and stays there across
 back-to-back launches, so these can lie under the bound. With
 ``--device cpu`` the plain versions run and no time is printed.
+
+``--main-path`` adds the shapes at which the main path gathers
+(``mirror_cases``, ``mapper_cases``): the hash mirrors, [2^22, 4] and
+[2^21, 4] tables of (x, y, z, travel) rows indexed by the neighbour-cell
+buckets of a synthetic frame's points as the neural map's probe, the
+tracker, the local map's labels and the insert make them (those rows also
+carry ``index_ms``, ``table[idx]`` eager and cold, what the port ran for
+them before), and the mapper's work-slab gathers. ``--host-cost`` adds
+the host microseconds of each wrapper call and of each part of a launch,
+over 10k calls on the card.
 """
 
 from __future__ import annotations
@@ -115,6 +126,88 @@ def make_cases(shrink: int = 1) -> List[dict]:
     ]
 
 
+def mapper_cases(shrink: int = 1) -> List[dict]:
+    """gather_rows at the two shapes the mapper's single-batch body gives
+    it on the bench configuration (bs 16384, K 6, F 8, map 2^18), made from
+    a seed: the work slab out of the map's features (ascending unique map
+    rows, the tail padded with the sentinel row) and the expanded features
+    out of the work slab (the batch's kNN references in batch order). Both
+    index vectors are int64. The same expanded-feature gather at
+    feature_dim 6, whose rows move as single floats. ``shrink`` divides the
+    row counts."""
+    rng = np.random.default_rng(7)
+    cap, w, n_rows = (1 << 18) // shrink, 16384 * 6 // shrink, 24000 // shrink
+    feats = rng.normal(0, 0.1, (cap + 1, 8)).astype(np.float32)
+    src_rows = np.full(w, cap, dtype=np.int64)
+    src_rows[:n_rows] = np.sort(rng.choice(cap, n_rows, replace=False))
+    work = feats[src_rows]
+    local_idx = rng.integers(0, n_rows, w).astype(np.int64)
+    site = "clid_slam_torch/mapping/mapper.py single_batch_body"
+    return [
+        dict(variant="mapper work0", kernel="gather_rows", table=feats, idx=src_rows,
+             replaces=site),
+        dict(variant="mapper f0", kernel="gather_rows", table=work, idx=local_idx,
+             replaces=site),
+        dict(variant="mapper f0 feature_dim 6", kernel="gather_rows",
+             table=np.ascontiguousarray(work[:, :6]), idx=local_idx, replaces=site),
+    ]
+
+
+def mirror_cases(shrink: int = 1) -> List[dict]:
+    """``gather_rows`` at the shapes of the main path's hash-mirror
+    gathers, with indices made as the main path makes them: the bench's
+    small sequence's first scan in the world frame (points jittered by
+    0.1 m where they stand for samples), occupied buckets holding their
+    voxel's point, the rest the empty sentinel (1e9), and int64 bucket
+    indices from ``neighbor_hash_soa`` (81 cells of 0.4 m, search_alpha
+    0.5; the local map 7 cells of 0.2 m). ``shrink`` divides the table rows
+    and the point counts, for CPU tests."""
+    from ..models.local_map import LOCAL_NB_OFFSETS
+    from ..ops.voxel import grid_coords, neighbor_hash_soa, neighbor_offsets, voxel_hash
+    from ..pipeline import bench_cases as bc
+
+    seq = bc.make_sequence(False, 1)
+    pose = seq.poses[0]
+    world = (seq.scans[0][:, :3] @ pose[:3, :3].T + pose[:3, 3]).astype(np.float32)
+    rng = np.random.default_rng(5)
+
+    def mirror(rows, voxel):
+        table = np.full((rows, 4), 1e9, np.float32)
+        pts = torch.from_numpy(world)
+        h = voxel_hash(grid_coords(pts, voxel), rows).numpy()
+        table[h, :3] = world
+        table[h, 3] = 0.0
+        return table
+
+    def pick(count, jitter):
+        sel = rng.choice(world.shape[0], count, replace=count > world.shape[0])
+        return world[sel] + rng.normal(0, jitter, (count, 3)).astype(np.float32)
+
+    def idx(points, offs, voxel, rows):
+        return neighbor_hash_soa(torch.from_numpy(points), torch.as_tensor(offs), voxel,
+                                 rows).reshape(-1).numpy()
+
+    nmap, local = (1 << 22) // shrink, (1 << 21) // shrink
+    nb81 = neighbor_offsets(2, 0.5)
+    own = np.zeros((1, 3), np.int32)
+    t_map, t_local = mirror(nmap, 0.4), mirror(local, 0.2)
+    site = "clid_slam_torch/models/"
+    return [
+        dict(variant="mirror mapper probe", kernel="gather_rows", table=t_map,
+             idx=idx(pick(16384 // shrink, 0.1), nb81, 0.4, nmap),
+             replaces=site + "neural_map.py neighborhood_probe (mapping/mapper.py)"),
+        dict(variant="mirror tracker probe", kernel="gather_rows", table=t_map,
+             idx=idx(pick(8192 // shrink, 0.0), nb81, 0.4, nmap),
+             replaces=site + "neural_map.py neighborhood_probe (odometry/iekf.py)"),
+        dict(variant="mirror local map", kernel="gather_rows", table=t_local,
+             idx=idx(pick(131072 // shrink, 0.1), LOCAL_NB_OFFSETS, 0.2, local),
+             replaces=site + "local_map.py region_specific_sdf"),
+        dict(variant="mirror insert", kernel="gather_rows", table=t_map,
+             idx=idx(pick(65536 // shrink, 0.1), own, 0.4, nmap),
+             replaces=site + "neural_map.py insert_points"),
+    ]
+
+
 _KERNELS = {
     # kernel wrapper, plain version, the one PyTorch call of the same function
     "gather_rows": (gt.gather_rows, gt.gather_rows_reference,
@@ -183,23 +276,96 @@ def run_case(case: dict, dev: torch.device, reps: int = 200) -> dict:
             library_graph_hot_ms=time_cuda_graph(library, reps, lib_hot),
             copies=copies, bound_ms=nbytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
         )
+        if case["variant"].startswith("mirror"):
+            index = lambda t, i: t[i]
+            row.update(index_ms=time_cuda(lambda: index(table, idx), reps),
+                       index_graph_ms=time_cuda_graph(index, reps, cold))
     return row
 
 
-def run(device=None, shrink: int = 1, reps: int = 200) -> List[dict]:
-    """Run the six variants on ``device`` (None: the card). Returns one row
-    per variant; raises on any mismatch with the plain version."""
+def _launch_parts(dev, table, idx):
+    """The parts of a ``gather_rows`` launch on the card, each as a
+    callable, for ``host_cost``; the bound C call launches the kernel."""
+    import ctypes
+
+    from ..ops import _build
+
+    out = gt.gather_rows(table, idx)
+    fn = gt._fn("gather_rows")
+    index = dev.index or 0
+    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), 1, 1, 1, 0)
+    vp = ctypes.c_void_p
+    return {
+        "checks": lambda: gt._check("gather_rows", table, idx, 2, 1),
+        "new_empty": lambda: table.new_empty((1, 4)),
+        "torch_empty": lambda: torch.empty((1, 4), dtype=torch.float32, device=dev),
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "c_void_p_objects": lambda: (vp(args[0]), vp(args[1]), vp(args[2]), vp(args[0])),
+        "data_ptrs": lambda: (table.data_ptr(), idx.data_ptr(), out.data_ptr()),
+        "library_lookup_locked": lambda: _build.load("gather", gt._declare),
+        "c_call_launch": lambda: fn(*args, torch._C._cuda_getCurrentRawStream(index)),
+    }
+
+
+def host_cost(device=None, reps: int = 10000, parts: bool = False) -> dict:
+    """Host microseconds per call of each whole gather wrapper call, over
+    ``reps`` calls on the card, at a one-row shape (so the device keeps
+    up). With ``parts``, also each part of a launch: the wrapper's checks,
+    the output allocation, the current stream as a ``Stream`` object and as
+    a raw handle, ctypes ``c_void_p`` objects against plain ints, the
+    library lookup under its lock and the bound C call alone."""
+    import time
+
     dev = resolve_device(device)
-    return [run_case(case, dev, reps) for case in make_cases(shrink)]
+    if dev.type != "cuda":
+        raise RuntimeError("host_cost measures launches on the card")
+    table = torch.zeros((4, 4), device=dev)
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    sel = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    calls = {
+        "gather_rows": lambda: gt.gather_rows(table, idx),
+        "gather_lanes": lambda: gt.gather_lanes(table, sel),
+        "gather_cols": lambda: gt.gather_cols(table, idx),
+    }
+    if parts:
+        calls = {**_launch_parts(dev, table, idx), **calls}
+    res = {"phase": "host_cost", "reps": reps, "device": str(dev), "us_per_call": {}}
+    for name, f in calls.items():
+        for _ in range(100):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        res["us_per_call"][name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
+def run(device=None, shrink: int = 1, reps: int = 200, main_path: bool = False) -> List[dict]:
+    """Run the six variants (and with ``main_path`` the hash-mirror and
+    mapper shapes) on ``device`` (None: the card). Returns one row per
+    variant; raises on any mismatch with the plain version."""
+    dev = resolve_device(device)
+    extra = mirror_cases(shrink) + mapper_cases(shrink) if main_path else []
+    cases = make_cases(shrink) + extra
+    return [run_case(case, dev, reps) for case in cases]
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None, help="'cpu' runs the plain versions; default: the card")
     ap.add_argument("--shrink", type=int, default=1, help="divide every row count by this")
+    ap.add_argument("--main-path", action="store_true",
+                    help="add the main path's shapes: the hash mirrors and the mapper's slab")
+    ap.add_argument("--host-cost", action="store_true",
+                    help="also time each part of a launch's host path (card only)")
     args = ap.parse_args(argv)
-    for row in run(args.device, args.shrink):
+    for row in run(args.device, args.shrink, main_path=args.main_path):
         print(json.dumps(row), flush=True)
+    if args.host_cost:
+        print(json.dumps(host_cost(args.device, parts=True)), flush=True)
 
 
 if __name__ == "__main__":

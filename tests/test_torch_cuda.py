@@ -310,6 +310,93 @@ def test_gather_rows_kernel_is_exact(shape, idx_type):
     assert torch.equal(out, gt.gather_rows_reference(table, idx))
 
 
+@functools.lru_cache(maxsize=1)
+def _mirror_cases():
+    from clid_slam_torch.tools import probe_gather as pg
+
+    return {c["variant"]: c for c in pg.mirror_cases()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
+@pytest.mark.parametrize("variant", ["mirror mapper probe", "mirror tracker probe",
+                                     "mirror local map", "mirror insert"])
+def test_gather_rows_kernel_is_exact_at_the_mirror_shapes(variant, idx_type):
+    """The main path's hash-mirror gathers: [2^22, 4] and [2^21, 4] tables
+    whose empty buckets hold the 1e9 sentinel, neighbour-cell buckets of a
+    frame's points, int32 and int64."""
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    case = _mirror_cases()[variant]
+    table = torch.from_numpy(case["table"]).to(dev)
+    idx = torch.from_numpy(case["idx"]).to(dev, IDX_TYPES[idx_type])
+    before = gt.launches["gather_rows"]
+    out = gt.gather_rows(table, idx)
+    assert gt.launches["gather_rows"] == before + 1
+    want = gt.gather_rows_reference(table, idx)
+    assert torch.equal(out, want)
+    empty = want[:, 0] > 1e8
+    assert 0 < int(empty.sum()) < want.shape[0]  # sentinel and occupied rows both met
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
+@pytest.mark.parametrize("width", [4, 6])
+@pytest.mark.parametrize("count", [1, 8 * 256 * 3 + 13, 8 * 256 * 132 * 8 + 5])
+def test_gather_rows_kernel_at_ragged_and_striding_counts(count, width, idx_type):
+    """One row, a count that ends inside a block, and a count larger than
+    the card's resident grid holds (the grid strides), for 16-byte and
+    single-float pieces."""
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    rng = np.random.default_rng(count + width)
+    table = torch.from_numpy(rng.normal(size=(5000, width)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 5000, count)).to(dev, IDX_TYPES[idx_type])
+    out = gt.gather_rows(table, idx)
+    assert torch.equal(out, gt.gather_rows_reference(table, idx))
+
+
+@pytest.mark.gpu
+def test_gather_rows_of_zero_rows_launches_nothing():
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    before = gt.launches["gather_rows"]
+    out = gt.gather_rows(torch.zeros(64, 4, device=dev), torch.zeros(0, dtype=torch.int64, device=dev))
+    assert out.shape == (0, 4) and out.is_cuda
+    assert gt.launches["gather_rows"] == before
+
+
+@pytest.mark.gpu
+def test_mirror_probes_gather_through_the_kernel_on_the_card():
+    """The neural map's probe and insert and the local map's labels gather
+    their mirror rows through gather_rows on the card."""
+    from clid_slam_torch.models import local_map as lm
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops.voxel import neighbor_offsets
+
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    pts = torch.from_numpy(rng.normal(0, 2.0, (3000, 3)).astype(np.float32)).to(dev)
+    ones = torch.ones(3000, dtype=torch.bool, device=dev)
+    td = torch.zeros(8, device=dev)
+    state = nm.init_map(1 << 13, 1 << 15, 8, device=dev)
+    before = gt.launches["gather_rows"]
+    state, _ = nm.insert_points(state, pts, ones, 0.3, td, 0, 1e9)
+    assert gt.launches["gather_rows"] == before + 1
+    nb = torch.as_tensor(neighbor_offsets(2, 0.5), device=dev)
+    d2, h, valid, mir = nm.neighborhood_probe(state, pts, nb, 0.3, 1.0)
+    assert gt.launches["gather_rows"] == before + 2
+    assert torch.equal(mir, state.hash_mirror[h])
+    local = lm.update_local_map(lm.init_local_map(1 << 13, 1 << 14, device=dev),
+                                torch.zeros(3, device=dev), pts, ones, 0.2, 10.0, crop_now=False)
+    lm.region_specific_sdf(local, pts, 0.2)
+    assert gt.launches["gather_rows"] == before + 3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
 def test_gather_lanes_kernel_is_exact(idx_type):

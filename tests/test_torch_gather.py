@@ -39,6 +39,34 @@ def test_gather_rows_matches_jnp(width, idx_type):
 
 
 @pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
+@pytest.mark.parametrize("cells", [81, 7])
+def test_gather_rows_at_a_mirror_shape_matches_jax(cells, idx_type):
+    """A hash mirror ([2^12, 4], empty buckets at the 1e9 sentinel) read at
+    the neighbour-cell buckets of a point cloud, as the neural map's probe
+    (81 cells) and the local map's labels (7 cells) read it: the port's
+    buckets equal JAX's, and ``gather_rows`` on them equals JAX's
+    ``mirror[h]`` bit for bit."""
+    from clid_slam_tpu.ops.voxel import neighbor_hash_soa, neighbor_offsets, voxel_hash
+    from clid_slam_torch.ops.voxel import neighbor_hash_soa as port_hash
+
+    rng = np.random.default_rng(cells)
+    rows, res = 1 << 12, 0.4
+    pts = rng.normal(0, 3.0, (500, 3)).astype(np.float32)
+    mirror = np.full((rows, 4), 1e9, np.float32)
+    occupied = np.asarray(voxel_hash(jnp.floor(jnp.asarray(pts[:300]) / res).astype(jnp.int32), rows))
+    mirror[occupied, :3], mirror[occupied, 3] = pts[:300], 1.5
+    offs = neighbor_offsets(2, 0.5) if cells == 81 else neighbor_offsets(1, 0.2)
+    assert offs.shape[0] == cells
+    hj = neighbor_hash_soa(jnp.asarray(pts), jnp.asarray(offs), res, rows)
+    want = np.asarray(jnp.asarray(mirror)[hj])
+    ht = port_hash(t(pts), t(offs), res, rows)
+    np.testing.assert_array_equal(n(ht), np.asarray(hj))
+    got = gt.gather_rows_nd(t(mirror), ht.to(torch.int32 if idx_type == "i32" else torch.int64))
+    np.testing.assert_array_equal(n(got), want)
+    assert (want[..., 0] > 1e8).any() and (want[..., 0] < 1e8).any()
+
+
+@pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
 def test_gather_lanes_matches_jnp(idx_type):
     rng = np.random.default_rng(1)
     src = rng.normal(size=(300, 128)).astype(np.float32)
@@ -90,6 +118,25 @@ def test_probe_entry_point_on_cpu(capsys):
     pg.main(["--device", "cpu", "--shrink", "64"])
     printed = [json.loads(ln) for ln in capsys.readouterr().out.strip().splitlines()]
     assert [r["kernel"] for r in printed] == [r["kernel"] for r in rows]
+
+
+def test_probe_main_path_shapes_on_cpu():
+    """The probe's main-path variants, cut 64-fold: the hash-mirror tables
+    hold the sentinel and occupied rows, their buckets come from 81 and 7
+    cells (1 for the insert) of the same points, and every plain result,
+    the mapper's slab gathers too, is exact."""
+    cases = pg.mirror_cases(64)
+    assert [c["variant"] for c in cases] == [
+        "mirror mapper probe", "mirror tracker probe", "mirror local map", "mirror insert"]
+    assert [c["table"].shape for c in cases] == [(65536, 4), (65536, 4), (32768, 4), (65536, 4)]
+    assert [c["idx"].shape[0] for c in cases] == [256 * 81, 128 * 81, 2048 * 7, 1024]
+    for c in cases:
+        assert c["idx"].dtype == np.int64 and c["idx"].max() < c["table"].shape[0]
+        hit = c["table"][c["idx"], 0] < 1e8
+        assert 0 < hit.mean() < 1
+    rows = pg.run("cpu", shrink=64, main_path=True)[6:]
+    assert [r["variant"] for r in rows] == [c["variant"] for c in cases + pg.mapper_cases(64)]
+    assert all(r["exact"] and "ms" not in r for r in rows)
 
 
 @pytest.mark.parametrize(

@@ -112,3 +112,24 @@ def test_region_specific_sdf_matches_jax():
     cos = np.abs(np.sum(n(nt)[ok] * np.asarray(nj)[ok], -1))
     assert cos.min() > np.cos(1e-3), cos.min()
     assert ok.mean() > 0.3
+
+
+def test_region_specific_sdf_gathers_the_mirror_through_gather_rows(monkeypatch):
+    """The labels' one probe gather reads the local map's mirror through
+    ``gather_rows`` ([N, 7] buckets; the kernel on the card, its plain
+    version here), and those rows are JAX's ``mirror[h]`` bit for bit."""
+    from clid_slam_tpu.ops.voxel import grid_coords, voxel_hash
+
+    calls = []
+    real = tlm.gather_rows_nd
+    monkeypatch.setattr(tlm, "gather_rows_nd",
+                        lambda table, idx: calls.append((idx, real(table, idx))) or calls[-1][1])
+    js, ts, rng = _both_maps((False, True, False))
+    q = _scan(rng, 3000, np.array([0.8, 0, 0], np.float32))
+    tlm.region_specific_sdf(ts, t(q), RES)
+    (idx, rows), = calls
+    assert idx.shape == (q.shape[0], 7)
+    cells = grid_coords(jnp.asarray(q), RES)[:, None, :] + jnp.asarray(tlm.LOCAL_NB_OFFSETS.numpy())
+    h = voxel_hash(cells, js.hash_table.shape[0])
+    np.testing.assert_array_equal(n(idx), np.asarray(h))
+    np.testing.assert_array_equal(n(rows), np.asarray(js.hash_mirror[h]))

@@ -165,6 +165,34 @@ def test_reference_matches_jax(case):
             < 3.0 * LR * max(c["mlp_scale"], 1e-9) + 1e-6
 
 
+def test_saturated_front_samples_stay_put_as_in_the_pallas_kernel():
+    """Pins the fused loop's rule where the logit and the target saturate
+    (free space far in front of the surface: label / sigma past ~17, so the
+    target rounds to 1): the loss gradient rounds to 0 there, in the plain
+    version as in the JAX Pallas kernel (``s_ - lbl``), and Adam leaves such
+    samples' features put. The JAX package's CPU loop differentiates
+    optax's log-sigmoid loss instead, whose gradient there is -sigmoid(-z),
+    a few 1e-9, which Adam (eps 1e-15) turns into a step of about lr: the
+    reference's TPU kernel and its CPU loop disagree here, and the port's
+    kernel follows the TPU kernel (PERF.md section 6, ROADMAP C)."""
+    import optax
+
+    x = _inputs(256, 1, seed=4)
+    x["mlp"]["b_out"] = np.array([20.0], np.float32)  # z ~ 20 for every sample
+    saturated = np.arange(256) % 2 == 1
+    x["label_op"] = np.where(saturated, np.float32(1.0), x["label_op"]).astype(np.float32)
+    taps = np.zeros(256, bool)
+    taps[np.arange(0, 256, DEC)[: x["bd"]]] = True
+    still = saturated & ~taps  # no eikonal gradient either
+    for n_iters in (1, 3):
+        fp, fk = n(_port(x, n_iters, 0.0, False)[0]), _pallas(x, n_iters, 0.0, False)[0]
+        np.testing.assert_array_equal(fk[still], x["f"][still])
+        np.testing.assert_array_equal(fp[still], x["f"][still])
+    z = jnp.full((4,), 20.0, jnp.float32)
+    g = jax.grad(lambda z: optax.sigmoid_binary_cross_entropy(z, jnp.ones(4)).sum())(z)
+    assert np.all(np.asarray(g) < 0)  # the JAX package's CPU loop keeps it
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     x = _inputs(512, 1, seed=3)
     a = _port(x, 3, 1.0, False)

@@ -160,3 +160,37 @@ def test_feature_dim_6_builds_and_only_the_fused_kernel_refuses_it():
         color_on=False, sem_on=False, weighted_first=True, mlp_bf16=False,
         mlp_leaky=False, loss_type="bce", feature_dim=6, n_hidden=1,
     ) == ["feature_dim=6"]
+
+
+def test_sdf_loss_keeps_optax_gradient_where_logit_and_target_saturate():
+    """The autograd loop's logistic loss has the gradient of the JAX
+    package's loss (optax's ``sigmoid_binary_cross_entropy``), also in free
+    space far in front of a surface, where the logit z and the target
+    saturate together (label / sigma and z past ~17, the target rounds to
+    1): there it is -sigmoid(-z), a few 1e-9 and not 0, and Adam (eps
+    1e-15) steps on it. The fused kernel rounds it to 0 as the JAX Pallas
+    kernel does (``test_torch_map_loop.py``), and so does the loss of
+    frame 0's general body (``saturated_grad=False``)."""
+    rng = np.random.default_rng(5)
+    sigma = 0.055
+    label = rng.uniform(-0.5, 2.0, 512).astype(np.float32)
+    pred = (label + rng.normal(0, 0.05, 512)).astype(np.float32)
+    weight = rng.uniform(0.5, 1.5, 512).astype(np.float32)
+    bvalid = (rng.uniform(size=512) < 0.9).astype(np.float32)
+    kw = dict(loss_type="bce", sigma=sigma, loss_weight_on=True)
+    jloss = jmp.make_sdf_loss(jnp.asarray(label), jnp.asarray(weight), jnp.asarray(bvalid), **kw)
+    jg = np.asarray(jax.grad(jloss)(jnp.asarray(pred)))
+    p = t(pred).requires_grad_(True)
+    tl = tmp.make_sdf_loss(t(label), t(weight), t(bvalid), **kw)(p)
+    tl.backward()
+    tg = n(p.grad)
+    np.testing.assert_allclose(n(tl), np.asarray(jloss(jnp.asarray(pred))), rtol=1e-6)
+    saturated = (label / sigma > 17) & (pred / sigma > 17) & (bvalid > 0)
+    assert saturated.sum() > 100 and np.all(jg[saturated] < 0)
+    np.testing.assert_allclose(tg[saturated], jg[saturated], rtol=1e-5)
+    np.testing.assert_allclose(tg, jg, rtol=1e-5, atol=1e-6 * np.abs(jg).max())
+    p = t(pred).requires_grad_(True)
+    tmp.make_sdf_loss(t(label), t(weight), t(bvalid), saturated_grad=False, **kw)(p).backward()
+    assert np.all(n(p.grad)[saturated] == 0)
+    np.testing.assert_allclose(n(p.grad)[~saturated], jg[~saturated], rtol=1e-4,
+                               atol=1e-5 * np.abs(jg).max())

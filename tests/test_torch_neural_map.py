@@ -100,6 +100,32 @@ def test_insert_compaction_drops_and_counts():
     assert dropped == [70000 - 65536]
 
 
+def test_mirror_gathers_go_through_gather_rows_and_stay_exact(monkeypatch):
+    """insert_points (past the 65,536-row compaction) and
+    neighborhood_probe read the hash mirror through ``gather_rows`` (the
+    kernel on the card, its plain version here) and stay bit for bit with
+    JAX: the whole map after the insert, the probe's mirror rows."""
+    calls = []
+    real = tnm.gather_rows_nd
+    monkeypatch.setattr(tnm, "gather_rows_nd",
+                        lambda table, idx: calls.append((table.shape, idx.shape)) or real(table, idx))
+    rng = np.random.default_rng(8)
+    g = rng.permutation(60**3)[:70000]
+    cells = np.stack([g // 3600, (g // 60) % 60, g % 60], 1).astype(np.float32)
+    pts = ((cells + 0.5) * RES).astype(np.float32)
+    ts, js, dropped = _insert_both([pts], [np.ones(70000, bool)], 1 << 17, 1 << 18, 1,
+                                   downsample=False)
+    _assert_map_equal(ts, js)
+    assert calls == [((1 << 18, 4), (65536,))]
+    nb = neighbor_offsets(2, 0.5)
+    q = pts[:2000] + rng.normal(0, 0.2, (2000, 3)).astype(np.float32)
+    _, hj, _, mj = jnm.neighborhood_probe(js, jnp.asarray(q), nb, RES, 1.0)
+    _, ht, _, mt = tnm.neighborhood_probe(ts, t(q), t(nb), RES, 1.0)
+    assert calls[1] == ((1 << 18, 4), (2000, 81))
+    np.testing.assert_array_equal(n(ht), np.asarray(hj))
+    np.testing.assert_array_equal(n(mt), np.asarray(mj))
+
+
 def _built_map(rng):
     """A map with random features and certainties, as both sides' states."""
     pts = rng.normal(0, 2.0, (4000, 3)).astype(np.float32)
