@@ -18,16 +18,22 @@ Phases, each printing one JSON line:
   gather  the gather probe (clid_slam_torch/tools/probe_gather.py): the
           row, lane and column gather kernels at the six probe shapes and
           at the main path's: the hash mirrors (2^22 and 2^21 rows of 4
-          floats, neighbour-cell buckets) and the mapper's work slab (int64
+          floats, neighbour-cell buckets), the mapper's work slab (int64
           indices; feature_dim 8, and 6 for rows that move as single
-          floats), each equal to its plain version bit for bit, with
-          kernel, plain and library-call ms (and table[idx] at the mirror
-          shapes) and the card's bound; then the host time of one call
-          of each gather wrapper;
+          floats) and the kNN selection (K 6 of 81 lanes for 16384 points,
+          16 of 81 for 8192, of f32, int64, bool and 16-byte lanes, the
+          selectors the first K columns of smallest_k's sort, rows 81
+          apart, as the path hands them over), each
+          equal to its plain version bit for bit, with kernel, plain and
+          library-call ms (and table[idx] at the mirror shapes) and the
+          card's bound; then the host time of one call of each gather
+          wrapper and of the library calls beside them;
   stream  the port's StreamingSlam on the bench's small sequence
           (1024x32 beams, 25 frames as bench.py runs them: 10 warm-up
           frames, 15 timed), with ATE/ARE against ground truth and the
-          kernels' launch counts on that run;
+          kernels' launch counts on that run (map_loop one a tracked
+          frame, gather_rows at least 6 and gather_lanes at least 7: the
+          tracker's 3 and the mapper's 4);
   stream_large     the same StreamingSlam on the bench's large sequence and
           configuration (200 frames, 10 warm-up; prune and rehash every 50
           frames), nothing cut, with the point count around each prune.
@@ -207,6 +213,7 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
         "prunes": [{"frame": f, "points_before": b, "points_after": a}
                    for f, b, a in out["prunes"]],
         "map_loop_launches": launches, "gather_rows_launches": gathers["gather_rows"],
+        "gather_lanes_launches": gathers["gather_lanes"],
         "tracked_frames": tracked,
         "peak_mem_gb": peak_mem_gb,
     }
@@ -223,6 +230,12 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
     if gathers["gather_rows"] < 6 * tracked:
         raise AssertionError(
             f"gather_rows launched {gathers['gather_rows']} times for {tracked} tracked frames"
+        )
+    # per tracked frame at least: the kNN selection's lane gathers, 3 in the
+    # tracker's candidates and 4 in the mapper's batch
+    if gathers["gather_lanes"] < 7 * tracked:
+        raise AssertionError(
+            f"gather_lanes launched {gathers['gather_lanes']} times for {tracked} tracked frames"
         )
     want_prunes = (
         [f for f in range(n_frames) if (f + 1) % cfg.prune_freq_frame == 0]
@@ -308,7 +321,8 @@ def launch_attribution(prof, n_profiled):
     profiler ties a kernel to a stage only through a torch op; a kernel
     launched through ctypes (the hand kernels) has none, so its launch's
     host time places it here. Returns (ms by stage, with "outside" and
-    "unlinked"; the hand kernels' ms and launches by stage)."""
+    "unlinked"; the hand kernels' ms and launches by stage, with PyTorch's
+    scatter/gather elementwise kernel beside them)."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -328,10 +342,12 @@ def launch_attribution(prof, n_profiled):
             (name for lo, hi, name in ranges if lo <= t <= hi), "outside")
         ms = e.duration_ns() / 1e6 / n_profiled
         by_stage[stage] = by_stage.get(stage, 0.0) + ms
-        kernel = re.search(r"(map_loop|gather_rows|gather_lanes|gather_cols)_kernel", e.name())
+        kernel = re.search(r"(map_loop|gather_rows|gather_lanes|gather_cols)_(kernel|narrow|staged)"
+                           r"|(_scatter_gather_elementwise)_kernel", e.name())
         if kernel:
-            row = hand.setdefault(f"{kernel.group(1)} @ {stage}", {"device_ms_per_frame": 0.0,
-                                                                  "launches_per_frame": 0.0})
+            name = kernel.group(1) or "torch" + kernel.group(3)
+            row = hand.setdefault(f"{name} @ {stage}", {"device_ms_per_frame": 0.0,
+                                                        "launches_per_frame": 0.0})
             row["device_ms_per_frame"] += ms
             row["launches_per_frame"] += 1 / n_profiled
     return by_stage, hand
@@ -388,11 +404,23 @@ def profile_phase(large, n_frames, n_profiled, device):
         if e.key in ("aten::index", "aten::index_select") and dev_ms(e) > 0
     ]
     index_rows.sort(key=lambda r: r["device_ms_per_frame"], reverse=True)
+    # PyTorch's own gathers and scatters by op and input shape, with the
+    # device time of the kernels each op launched itself (the scatter/gather
+    # elementwise kernel serves gather, scatter_, scatter_add_ and
+    # scatter_reduce_), so the selection's gathers ([N, 81] sources) and the
+    # scatters part
+    scatter_gather = [
+        {"op": e.key, "input_shapes": e.input_shapes,
+         "device_ms_per_frame": self_dev_ms(e) / n_profiled, "calls_per_frame": e.count / n_profiled}
+        for e in prof.key_averages(group_by_input_shape=True)
+        if e.device_type != cuda and re.search("gather|scatter", e.key) and self_dev_ms(e) > 0
+    ]
+    scatter_gather.sort(key=lambda r: r["device_ms_per_frame"], reverse=True)
     res = {"phase": "profile", "large": large, "frames": n_profiled, "wall_ms_per_frame": wall_ms / n_profiled,
            "device_busy_ms_per_frame": busy_ms / n_profiled,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "stages": stages, "hand_kernels_by_stage": hand, "top_kernels": top,
-           "index_ops": index_rows[:12]}
+           "index_ops": index_rows[:12], "scatter_gather_ops": scatter_gather[:24]}
     emit(res)
     return res
 
@@ -406,12 +434,17 @@ def ptxas_summary(report):
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             args = re.search(r"map_loop_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", m.group(1))
-            gather = re.search(r"(gather_\w+?)_kernelI([il])(6float4|f)?E", m.group(1))
+            gather = re.search(r"(gather_(?:rows|lanes|cols)_(?:kernel|narrow|staged))I([il])(\w*?)E+v", m.group(1))
             if args:
                 name = "map_loop<%s>" % ",".join(args.groups())
             elif gather:
+                # the second template argument as mangled: the row piece
+                # (6float4, f), the lane (h, j, y, 5uint4) or the cols
+                # kernel's 16-byte path (Lb1, Lb0)
                 name = "%s<%s>" % (gather.group(1), {"i": "int32", "l": "int64"}[gather.group(2)]
-                                   + {None: "", "6float4": ",float4", "f": ",float"}[gather.group(3)])
+                                   + "," + {"6float4": "float4", "f": "float", "h": "1B",
+                                            "j": "4B", "y": "8B", "5uint4": "16B", "Lb1": "vec",
+                                            "Lb0": "scalar"}.get(gather.group(3), gather.group(3)))
             else:
                 name = m.group(1)
             out.append({"entry": name})
@@ -426,7 +459,8 @@ def ptxas_summary(report):
 
 def gather_phase(device):
     """The probe entry point's six variants and the main path's shapes (the
-    hash mirrors and the mapper's work slab), and the host time of one call
+    hash mirrors, the mapper's work slab and the kNN selection), and the
+    host time of one call
     of each wrapper. Returns the rows and the probe run's launch counts."""
     from clid_slam_torch.ops import gather as gt
     from clid_slam_torch.tools import probe_gather as pg
@@ -443,19 +477,18 @@ def gather_phase(device):
     return rows, probe_launches
 
 
-def gather_kernel_entry(name, rows, main_variant, launches, by_path, mirror_variant=None):
+def gather_kernel_entry(name, rows, main_variant, launches, by_path, other_variants=()):
     """The summary entry of one gather kernel: times and bound of its row at
     ``main_variant``, the largest error over all of its rows, and beside
-    them the times of its row at ``mirror_variant``."""
+    them the times of its rows at ``other_variants``."""
     mine = [r for r in rows if r["kernel"] == name]
     main = next(r for r in mine if r["variant"] == main_variant)
-    extra = {}
-    if mirror_variant:
-        m = next(r for r in mine if r["variant"] == mirror_variant)
-        extra["mirror_variant"] = {k: m[k] for k in (
-            "variant", "table", "idx", "idx_dtype", "ms", "graph_ms", "bound_ms", "library_ms",
-            "library_graph_ms", "index_ms", "index_graph_ms")}
-    return {**extra, "main_variant": main_variant,
+    keys = ("variant", "table", "dtype", "idx", "idx_dtype", "ms", "graph_ms", "graph_hot_ms",
+            "bound_ms", "library_ms", "library_graph_ms", "library_graph_hot_ms", "index_ms",
+            "index_graph_ms")
+    others = [{k: r[k] for k in keys if k in r} for v in other_variants
+              for r in mine if r["variant"] == v]
+    return {"other_variants": others, "main_variant": main_variant,
         "name": name, "route": "cuda", "source": "clid_slam_torch/csrc/gather.cu",
         "replaces": "; ".join(sorted({r["replaces"] for r in mine if r["replaces"].startswith("scripts/")})),
         "launches": launches, "launches_by_path": by_path,
@@ -527,7 +560,7 @@ def main():
 
     main_case = cases[0]  # the bench config: 1 hidden layer, no layer norm
     # launches: the count on the large run, this script's full-width path;
-    # the lane and column gathers run on the probe entry point only
+    # the column gather runs on the probe entry point only
     emit({"kernels": [
         {
             "name": "map_loop", "route": "cuda",
@@ -544,11 +577,14 @@ def main():
         gather_kernel_entry(
             "gather_rows", gather_table, "mapper f0", large["gather_rows_launches"],
             dict(by_path("gather_rows_launches"), probe=probe_launches["gather_rows"]),
-            mirror_variant="mirror mapper probe",
+            other_variants=["mirror mapper probe"],
         ),
-        gather_kernel_entry("gather_lanes", gather_table, "K4 gather_b",
-                            probe_launches["gather_lanes"],
-                            {"probe": probe_launches["gather_lanes"]}),
+        gather_kernel_entry(
+            "gather_lanes", gather_table, "select mapper d2s", large["gather_lanes_launches"],
+            dict(by_path("gather_lanes_launches"), probe=probe_launches["gather_lanes"]),
+            other_variants=["K4 gather_b"] + [f"select {w} {s}" for w in ("mapper", "tracker")
+                                               for s in ("d2s", "h", "pvalid", "mir")][1:],
+        ),
         gather_kernel_entry("gather_cols", gather_table, "K7 make_c",
                             probe_launches["gather_cols"],
                             {"probe": probe_launches["gather_cols"]}),

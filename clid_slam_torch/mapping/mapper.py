@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..models import decoder as dec
 from ..models import neural_map as nm
 from ..mapping.pool import ReplayPool, sample_batch_indices, split_rows
-from ..ops.gather import gather_rows, gather_rows_nd
+from ..ops.gather import gather_lanes, gather_rows, gather_rows_nd
 from ..ops.map_loop import map_loop
 from ..ops.voxel import grid_coords, voxel_hash
 
@@ -246,14 +246,14 @@ def make_mapping_fn(
         nn_count = torch.sum(pvalid.to(torch.int32), dim=-1)
         d2s = torch.where(pvalid, d2, torch.full_like(d2, 9e3))
         sel = nm.smallest_k(d2s, knn_k)
-        knn_d2 = torch.gather(d2s, 1, sel)
-        h_sel = torch.gather(h, 1, sel)
-        valid = torch.gather(pvalid, 1, sel) & ~nm.dedupe_mask(h_sel)
+        knn_d2 = gather_lanes(d2s, sel)
+        h_sel = gather_lanes(h, sel)
+        valid = gather_lanes(pvalid, sel) & ~nm.dedupe_mask(h_sel)
         idx_sel = map_state.hash_table[h_sel].to(torch.int64)
         valid = valid & (idx_sel >= 0)
         knn_idx = torch.where(valid, idx_sel, torch.full_like(idx_sel, -1))
         safe = torch.where(valid, idx_sel, torch.full_like(idx_sel, cap))
-        nb_pos = torch.gather(mir, 1, sel[..., None].expand(-1, -1, 4))[..., :3]
+        nb_pos = gather_lanes(mir, sel)[..., :3]
 
         vec0 = coord[:, None, :] - nb_pos  # [bs,k,3]
         w0 = nm.idw_weights(knn_d2, valid, nn_count)

@@ -19,7 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.gather import gather_rows_nd
+from ..ops.gather import gather_lanes, gather_rows_nd
 from ..ops.scatter import compact_indices, scatter_set, segment_add
 from ..utils import lie
 from ..ops.voxel import (
@@ -279,9 +279,9 @@ def query_feature(
     nn_count = torch.sum(pvalid.to(torch.int32), dim=-1)
     d2s = torch.where(pvalid, d2, torch.full_like(d2, 9e3))
     sel = smallest_k(d2s.detach(), knn_k)
-    knn_d2 = torch.gather(d2s, 1, sel)
-    h_sel = torch.gather(h, 1, sel)
-    valid = torch.gather(pvalid, 1, sel) & ~dedupe_mask(h_sel)
+    knn_d2 = gather_lanes(d2s, sel)
+    h_sel = gather_lanes(h, sel)
+    valid = gather_lanes(pvalid, sel) & ~dedupe_mask(h_sel)
     idx_sel = state.hash_table[h_sel].to(torch.int64)
     valid = valid & (idx_sel >= 0)
     knn_idx = torch.where(valid, idx_sel, torch.full_like(idx_sel, -1))
@@ -291,7 +291,7 @@ def query_feature(
     if layer_norm:
         feats = layer_norm_feats(feats)
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))
-    nb_pos = torch.gather(mir, 1, sel[..., None].expand(-1, -1, 4))[..., :3]
+    nb_pos = gather_lanes(mir, sel)[..., :3]
     vecs = points[:, None, :] - nb_pos
     if encode_vecs is not None:
         vecs = encode_vecs(vecs)

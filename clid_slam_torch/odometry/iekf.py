@@ -20,6 +20,7 @@ import torch
 
 from ..models import decoder as dec
 from ..models import neural_map as nm
+from ..ops.gather import gather_lanes
 from ..utils import lie
 
 G_M_S2 = 9.81
@@ -142,9 +143,9 @@ def make_cached_update_fn(
         )
         d2s = torch.where(pvalid, d2, torch.full_like(d2, 9e3))
         sel = nm.smallest_k(d2s, n_cand)
-        h_sel = torch.gather(h, 1, sel)
-        cand_pos = torch.gather(mir, 1, sel[..., None].expand(-1, -1, 4))[..., :3]
-        cvalid = (torch.gather(d2s, 1, sel) < 9e3) & ~nm.dedupe_mask(h_sel)
+        h_sel = gather_lanes(h, sel)
+        cand_pos = gather_lanes(mir, sel)[..., :3]
+        cvalid = (gather_lanes(d2s, sel) < 9e3) & ~nm.dedupe_mask(h_sel)
         idx = map_state.hash_table[h_sel].to(torch.int64)
         cvalid = cvalid & (idx >= 0)
         safe = torch.where(cvalid, idx, torch.full_like(idx, cap))

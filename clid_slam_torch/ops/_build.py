@@ -1,19 +1,24 @@
 """Build and load the port's hand-written CUDA sources.
 
 Each ``clid_slam_torch/csrc/<name>.cu`` is compiled with ``nvcc`` for
-``sm_90a`` into a C-ABI shared library at first use, under
-``clid_slam_torch/build/`` (listed in ``.gitignore``), and bound with
-``ctypes``. The library's file name carries a hash of the source and of
-``NVCC_FLAGS``, so a change to either builds a new one.
+``sm_90a`` into a shared library at first use, under
+``clid_slam_torch/build/`` (listed in ``.gitignore``), and bound either
+with ``ctypes`` (``load``: its C entry points) or as the Python extension
+module ``clid_<name>`` that the source defines (``load_module``: a call
+through it costs the host less). The library's file name carries a hash of
+the source and of ``NVCC_FLAGS``, so a change to either builds a new one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from typing import Dict
 
@@ -21,10 +26,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-I", sysconfig.get_paths()["include"],
 ]
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[str, object] = {}
 _lock = threading.Lock()
 
 
@@ -92,4 +97,19 @@ def load(name: str, declare) -> ctypes.CDLL:
             lib = ctypes.CDLL(lib_path(name))
             declare(lib)
             _libs[name] = lib
+        return _libs[name]
+
+
+def load_module(name: str):
+    """The Python extension module ``clid_<name>`` that ``csrc/<name>.cu``
+    defines, built at first use."""
+    with _lock:
+        if name not in _libs:
+            build(name)
+            mod_name = f"clid_{name}"
+            loader = importlib.machinery.ExtensionFileLoader(mod_name, lib_path(name))
+            spec = importlib.util.spec_from_file_location(mod_name, lib_path(name), loader=loader)
+            module = importlib.util.module_from_spec(spec)
+            loader.exec_module(module)
+            _libs[name] = module
         return _libs[name]

@@ -1,13 +1,15 @@
-"""Row, lane and column gathers of f32 tables: CUDA kernel wrappers and
-their plain PyTorch versions.
+"""Row and column gathers of f32 tables and lane gathers of 1-, 4-, 8- and
+16-byte elements: CUDA kernel wrappers and their plain PyTorch versions.
 
 They replace the Pallas gather probes of the JAX package
 (``scripts/probe_pallas_gather.py`` ``gather_a``, ``gather_a2``,
 ``gather_b``; ``scripts/probe_pallas_gather2.py`` ``make_a``, ``make_b``,
-``make_c``), and ``gather_rows`` is the mapper's gather of the frame's work
-slab. The kernel source is ``clid_slam_torch/csrc/gather.cu`` (its header
-note says what bounds the kernels on the H100); ``ops/_build.py`` compiles
-it at first use and binds it with ``ctypes``.
+``make_c``). On the main path ``gather_rows`` gathers the mapper's work
+slab and the hash mirrors' rows, and ``gather_lanes`` the kNN selection's
+picks out of the 81 candidate buckets of each point. The kernel source is
+``clid_slam_torch/csrc/gather.cu`` (its header note says what bounds the
+kernels on the H100); ``ops/_build.py`` compiles it at first use and loads
+it as the Python extension module it defines.
 
 Each wrapper dispatches on the table's device: CUDA tensors launch the
 kernel (or raise), CPU tensors run the plain version. There is no fallback
@@ -15,16 +17,14 @@ from one to the other. Indices are int32 or int64 and are not checked or
 clamped: an index outside the table is the caller's error.
 
 A call on the card costs host time beside the kernel's few microseconds,
-so the launch path is kept short: the library's functions are bound once,
-pointers and the current stream pass to ctypes as plain ints (the stream
-from ``torch._C._cuda_getCurrentRawStream``, a CUDA build's own accessor,
-so no ``Stream`` object is made per call), and the checks are those the
-kernels need.
+so the launch path is kept short: the module's entry points take plain ints
+(pointers, sizes and the current stream from
+``torch._C._cuda_getCurrentRawStream``, a CUDA build's own accessor, so no
+``Stream`` object is made per call) in one METH_FASTCALL call, cheaper than
+ctypes' argument conversion, and the checks are those the kernels need.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -39,26 +39,14 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _declare(lib):
-    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.clid_gather_rows.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
-    lib.clid_gather_lanes.argtypes = [vp, vp, vp, ll, ci, ci, ci, vp]
-    lib.clid_gather_cols.argtypes = [vp, vp, vp, ll, ll, ll, ci, vp]
-    for fn in (lib.clid_gather_rows, lib.clid_gather_lanes, lib.clid_gather_cols):
-        fn.restype = ci
+_module = None  # the kernels' Python module (clid_gather), loaded at the first launch
 
 
-_fns = {}  # kernel name -> bound C function, filled at the first launch
-
-
-def _fn(name):
-    fn = _fns.get(name)
-    if fn is None:
-        lib = _build.load("gather", _declare)
-        for k in launches:
-            _fns[k] = getattr(lib, "clid_" + k)
-        fn = _fns[name]
-    return fn
+def _kernels():
+    global _module
+    if _module is None:
+        _module = _build.load_module("gather")
+    return _module
 
 
 def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -66,7 +54,10 @@ def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
 
 
 def gather_lanes_reference(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    return torch.take_along_dim(src, sel.long(), dim=1)
+    sel = sel.long()
+    if src.dim() == 3:
+        sel = sel[..., None].expand(-1, -1, src.shape[2])
+    return torch.take_along_dim(src, sel, dim=1)
 
 
 def gather_cols_reference(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -93,7 +84,7 @@ def _launch(fn, table, idx, out, *dims):
     """Launch one kernel of csrc/gather.cu on the current stream."""
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{fn}: the table and the indices must be contiguous")
-    err = _fn(fn)(
+    err = getattr(_module or _kernels(), fn)(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), *dims,
         torch._C._cuda_getCurrentRawStream(table.get_device()),
     )
@@ -130,21 +121,91 @@ def gather_rows_nd(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_rows(table, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
 
 
+# gather_lanes: the lane sizes its kernel copies
+LANE_BYTES = (1, 4, 8, 16)
+
+
+class _LanesBackward(torch.autograd.Function):
+    """``gather_lanes`` of a source that needs a gradient: the kernel
+    forward, and ``torch.gather``'s own backward (a scatter-add of the
+    output's gradient into zeros)."""
+
+    @staticmethod
+    def forward(ctx, src, sel):
+        ctx.save_for_backward(sel)
+        ctx.src_shape = src.shape
+        return gather_lanes(src.detach(), sel)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (sel,) = ctx.saved_tensors
+        sel = sel.long()
+        if len(ctx.src_shape) == 3:
+            sel = sel[..., None].expand(-1, -1, ctx.src_shape[2])
+        return grad.new_zeros(ctx.src_shape).scatter_add_(1, sel, grad), None
+
+
 def gather_lanes(src: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """``out[n, j] = src[n, sel[n, j]]``: src [N, L] f32, sel [N, L']
-    -> [N, L']."""
-    _check("gather_lanes", src, sel, 2, 2)
-    if sel.shape[0] != src.shape[0]:
-        raise ValueError(
-            f"gather_lanes: {sel.shape[0]} selector rows for {src.shape[0]} source rows"
+    """``out[n, j] = src[n, sel[n, j]]``: src [N, L] of 1-, 4- or 8-byte
+    elements (bool, f32, int32, int64, ...) or [N, L, C] of 16-byte pieces
+    ([N, L, 4] f32), sel [N, K] -> [N, K] or [N, K, C], copied bit for bit.
+    The source must be aligned to its lane size; selector rows may be
+    strided (a slice of columns). The kernel picks its regime from the
+    shapes (``csrc/gather.cu``'s note).
+
+    The main path calls it 7 times a tracked frame, so the checks are
+    written for few tensor attribute reads (each costs the host about
+    0.1 µs)."""
+    shape, sshape = src.shape, sel.shape
+    lane = src.element_size()
+    if len(shape) == 3:
+        lane *= shape[2]
+    elif len(shape) != 2:
+        lane = 0
+    if lane not in LANE_BYTES:
+        raise TypeError(
+            f"gather_lanes: lanes of 1, 4, 8 or 16 bytes, got {tuple(shape)} {src.dtype}"
         )
-    if not src.is_cuda:
+    idx_type = sel.dtype
+    if idx_type is not torch.int64 and idx_type is not torch.int32:
+        raise TypeError(f"gather_lanes: selectors must be int32 or int64, got {idx_type}")
+    if len(sshape) != 2 or sshape[0] != shape[0]:
+        raise ValueError(
+            f"gather_lanes: selectors {tuple(sshape)} for a source {tuple(shape)}"
+        )
+    ptr = src.data_ptr()
+    if ptr % lane:
+        raise ValueError(f"gather_lanes: the source is not aligned to its {lane}-byte lanes")
+    dev = src.get_device()
+    if dev != sel.get_device():
+        raise ValueError(f"gather_lanes: selectors on {sel.device}, the source on {src.device}")
+    if dev < 0:
+        if src.device.type != "cpu":
+            raise ValueError(f"gather_lanes: unsupported device {src.device}")
         return gather_lanes_reference(src, sel)
-    out = src.new_empty(sel.shape)
-    if out.numel() == 0:
+    if not src.is_cuda:
+        raise ValueError(f"gather_lanes: unsupported device {src.device}")
+    if src.requires_grad and torch.is_grad_enabled():
+        return _LanesBackward.apply(src, sel)
+    sel_ld, sel_step = sel.stride()
+    if not src.is_contiguous() or sel_step != 1:
+        raise ValueError("gather_lanes: the source must be contiguous and each selector "
+                         "row's lanes adjacent")
+    if len(shape) == 2:
+        out = torch.empty_like(sel, dtype=src.dtype)  # contiguous, as sel.stride(1) == 1
+    else:
+        out = src.new_empty((sshape[0], sshape[1], shape[2]))
+    if sshape[0] == 0 or sshape[1] == 0:
         return out
-    return _launch("gather_lanes", src, sel, out, src.shape[0], src.shape[1], sel.shape[1],
-                   int(sel.dtype is torch.int64))
+    err = (_module or _kernels()).gather_lanes(
+        ptr, sel.data_ptr(), out.data_ptr(), sshape[0], shape[1], sshape[1], sel_ld,
+        lane | (32 if idx_type is torch.int64 else 0),
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
+    if err != 0:
+        raise RuntimeError(f"gather_lanes kernel launch failed: cudaError {err}")
+    launches["gather_lanes"] += 1
+    return out
 
 
 def gather_cols(table_t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -30,14 +30,21 @@ back-to-back launches, so these can lie under the bound. With
 buckets of a synthetic frame's points as the neural map's probe, the
 tracker, the local map's labels and the insert make them (those rows also
 carry ``index_ms``, ``table[idx]`` eager and cold, what the port ran for
-them before), and the mapper's work-slab gathers. ``--host-cost`` adds
-the host microseconds of each wrapper call and of each part of a launch,
-over 10k calls on the card.
+them before), the mapper's work-slab gathers, and the kNN selection's lane
+gathers (``selection_cases``: the mapper's K 6 and the tracker's 16 of 81
+candidate buckets, picked by ``smallest_k`` out of a synthetic frame's
+probe, at the four element widths the path gathers: f32 distances, int64
+buckets, bool validity and 16-byte mirror rows; the selectors are handed
+over as the path hands them, the first K columns of the whole sort, rows
+81 apart; ``torch.gather(1)``, the library call, is what the port ran
+there before). ``--host-cost`` adds the host microseconds of each wrapper
+call and of each part of a launch, over 10k calls on the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 from typing import List, Optional
 
@@ -153,6 +160,74 @@ def mapper_cases(shrink: int = 1) -> List[dict]:
     ]
 
 
+@functools.lru_cache(maxsize=2)
+def _frame(shrink: int):
+    """The bench's small sequence's first scan in the world frame, and the
+    neural map's hash mirror ([2^22 / shrink, 4]) built from it: occupied
+    buckets hold their voxel's point and travel 0, the rest the empty
+    sentinel (1e9). Cached, since the mirror and the selection cases share
+    it (64 MB uncut); callers only read it."""
+    from ..pipeline import bench_cases as bc
+
+    seq = bc.make_sequence(False, 1)
+    pose = seq.poses[0]
+    world = (seq.scans[0][:, :3] @ pose[:3, :3].T + pose[:3, 3]).astype(np.float32)
+    return world, _mirror(world, (1 << 22) // shrink, 0.4)
+
+
+def _mirror(world, rows, voxel):
+    from ..ops.voxel import grid_coords, voxel_hash
+
+    table = np.full((rows, 4), 1e9, np.float32)
+    h = voxel_hash(grid_coords(torch.from_numpy(world), voxel), rows).numpy()
+    table[h, :3] = world
+    table[h, 3] = 0.0
+    return table
+
+
+def _pick(world, rng, count, jitter):
+    sel = rng.choice(world.shape[0], count, replace=count > world.shape[0])
+    return world[sel] + rng.normal(0, jitter, (count, 3)).astype(np.float32)
+
+
+def selection_cases(shrink: int = 1) -> List[dict]:
+    """``gather_lanes`` at the kNN selection's shapes, with selectors made
+    as the main path makes them: a frame's points (jittered by 0.1 m for the
+    mapper's samples) probe the neural map's mirror at their 81 neighbour
+    cells (``_frame``; 0.4 m voxels, search_alpha 0.5) as
+    ``neighborhood_probe`` does, distances over the bench's
+    max_valid_dist2 (4.32 m^2) become 9e3, and ``smallest_k`` picks the
+    mapper's K 6 of 16384 points and the tracker's 16 of 8192. Each shape
+    at the four sources the path gathers from: the distances (f32), the
+    buckets (int64), the validity (bool) and the mirror rows ([N, 81, 4]
+    f32, 16-byte lanes). A case's ``idx`` is the whole sort [N, 81] and
+    ``k`` its first columns that the path gathers with (``run_case`` hands
+    the kernel that strided view, as ``smallest_k`` does). ``shrink``
+    divides the point counts and the mirror's rows."""
+    from ..models.neural_map import smallest_k
+    from ..ops.voxel import neighbor_hash_soa, neighbor_offsets
+
+    world, table = _frame(shrink)
+    rng = np.random.default_rng(6)
+    nb81 = torch.as_tensor(neighbor_offsets(2, 0.5))
+    cases = []
+    for who, count, k, jitter, site in (
+        ("mapper", 16384, 6, 0.1, "clid_slam_torch/mapping/mapper.py build_cache"),
+        ("tracker", 8192, 16, 0.0, "clid_slam_torch/odometry/iekf.py build_candidates"),
+    ):
+        pts = torch.from_numpy(_pick(world, rng, count // shrink, jitter))
+        h = neighbor_hash_soa(pts, nb81, 0.4, table.shape[0])
+        mir = torch.from_numpy(table)[h]
+        d2 = torch.sum((mir[..., :3] - pts[:, None, :]) ** 2, dim=-1)
+        valid = d2 <= 4.32
+        d2s = torch.where(valid, d2, torch.full_like(d2, 9e3))
+        order = smallest_k(d2s, d2s.shape[1]).numpy()
+        for name, src in (("d2s", d2s), ("h", h), ("pvalid", valid), ("mir", mir)):
+            cases.append(dict(variant=f"select {who} {name}", kernel="gather_lanes",
+                              table=src.numpy(), idx=order, k=k, replaces=site))
+    return cases
+
+
 def mirror_cases(shrink: int = 1) -> List[dict]:
     """``gather_rows`` at the shapes of the main path's hash-mirror
     gathers, with indices made as the main path makes them: the bench's
@@ -163,25 +238,11 @@ def mirror_cases(shrink: int = 1) -> List[dict]:
     0.5; the local map 7 cells of 0.2 m). ``shrink`` divides the table rows
     and the point counts, for CPU tests."""
     from ..models.local_map import LOCAL_NB_OFFSETS
-    from ..ops.voxel import grid_coords, neighbor_hash_soa, neighbor_offsets, voxel_hash
-    from ..pipeline import bench_cases as bc
+    from ..ops.voxel import neighbor_hash_soa, neighbor_offsets
 
-    seq = bc.make_sequence(False, 1)
-    pose = seq.poses[0]
-    world = (seq.scans[0][:, :3] @ pose[:3, :3].T + pose[:3, 3]).astype(np.float32)
+    world, t_map = _frame(shrink)
     rng = np.random.default_rng(5)
-
-    def mirror(rows, voxel):
-        table = np.full((rows, 4), 1e9, np.float32)
-        pts = torch.from_numpy(world)
-        h = voxel_hash(grid_coords(pts, voxel), rows).numpy()
-        table[h, :3] = world
-        table[h, 3] = 0.0
-        return table
-
-    def pick(count, jitter):
-        sel = rng.choice(world.shape[0], count, replace=count > world.shape[0])
-        return world[sel] + rng.normal(0, jitter, (count, 3)).astype(np.float32)
+    pick = lambda count, jitter: _pick(world, rng, count, jitter)
 
     def idx(points, offs, voxel, rows):
         return neighbor_hash_soa(torch.from_numpy(points), torch.as_tensor(offs), voxel,
@@ -190,7 +251,7 @@ def mirror_cases(shrink: int = 1) -> List[dict]:
     nmap, local = (1 << 22) // shrink, (1 << 21) // shrink
     nb81 = neighbor_offsets(2, 0.5)
     own = np.zeros((1, 3), np.int32)
-    t_map, t_local = mirror(nmap, 0.4), mirror(local, 0.2)
+    t_local = _mirror(world, local, 0.2)
     site = "clid_slam_torch/models/"
     return [
         dict(variant="mirror mapper probe", kernel="gather_rows", table=t_map,
@@ -213,7 +274,8 @@ _KERNELS = {
     "gather_rows": (gt.gather_rows, gt.gather_rows_reference,
                     lambda t, i: t.index_select(0, i)),
     "gather_lanes": (gt.gather_lanes, gt.gather_lanes_reference,
-                     lambda t, i: torch.gather(t, 1, i)),
+                     lambda t, i: torch.gather(t, 1, i if t.dim() == 2
+                                               else i[..., None].expand(-1, -1, t.shape[2]))),
     "gather_cols": (gt.gather_cols, gt.gather_cols_reference,
                     lambda t, i: t.index_select(1, i)),
 }
@@ -225,15 +287,17 @@ def gather_bytes(kernel: str, table: torch.Tensor, idx: torch.Tensor, out: torch
     (not the whole table: an index vector may leave most of it unread)."""
     i = idx.long()
     width = table.shape[1]
+    element = table.element_size()
     if kernel == "gather_rows":  # every element of a touched row
         elems = (torch.unique(i)[:, None] * width
                  + torch.arange(width, device=i.device)).flatten()
-    elif kernel == "gather_lanes":
+    elif kernel == "gather_lanes":  # a lane: an element, or a [.., C] piece
         elems = (torch.arange(table.shape[0], device=i.device)[:, None] * width + i).flatten()
+        element *= table[0, 0].numel()
     else:  # gather_cols
         elems = (torch.arange(table.shape[0], device=i.device)[:, None] * width
                  + torch.unique(i)).flatten()
-    per_sector = SECTOR_BYTES // table.element_size()
+    per_sector = SECTOR_BYTES // element
     sectors = torch.unique(torch.div(elems, per_sector, rounding_mode="floor")).numel()
     return sectors * SECTOR_BYTES + sum(x.numel() * x.element_size() for x in (idx, out))
 
@@ -242,18 +306,23 @@ def run_case(case: dict, dev: torch.device, reps: int = 200) -> dict:
     """One variant (a dict as ``make_cases`` makes them) on ``dev``: the row
     that ``run`` returns for it. Raises on a mismatch with the plain version."""
     kernel, plain, library = _KERNELS[case["kernel"]]
+    # the first k columns of a selection case's whole sort, rows strided
+    cols = (lambda i: i[:, :case["k"]]) if "k" in case else (lambda i: i)
     table = torch.from_numpy(case["table"]).to(dev)
-    idx = torch.from_numpy(case["idx"]).to(dev)
+    whole_idx = torch.from_numpy(case["idx"]).to(dev)
+    idx = cols(whole_idx)
     out = kernel(table, idx)
     want = plain(table, idx)
-    if out.shape != want.shape or not torch.equal(out, want):
+    if out.shape != want.shape or out.dtype != want.dtype or not torch.equal(out, want):
         raise AssertionError(f"{case['variant']}: {case['kernel']} differs from its plain version")
     nbytes = gather_bytes(case["kernel"], table, idx, out)
     row = {
         "variant": case["variant"], "kernel": case["kernel"],
         "replaces": case["replaces"], "table": list(table.shape),
+        "dtype": str(table.dtype).replace("torch.", ""),
         "idx": list(idx.shape), "idx_dtype": str(idx.dtype).replace("torch.", ""),
-        "exact": True, "max_abs_err": float((out - want).abs().max()),
+        # equal bit for bit (checked above), so no element differs
+        "exact": True, "max_abs_err": 0.0,
         "bytes": nbytes, "device": str(dev),
     }
     if dev.type == "cuda":
@@ -264,7 +333,7 @@ def run_case(case: dict, dev: torch.device, reps: int = 200) -> dict:
         hot, lib_hot = [(table, idx)], [(table, lib_idx)]
         whole = sum(x.numel() * x.element_size() for x in (table, idx, out))
         copies = min(reps, int(3 * L2_BYTES // whole) + 1)
-        cold = [(table.clone(), idx.clone()) for _ in range(copies)]
+        cold = [(table.clone(), cols(whole_idx.clone())) for _ in range(copies)]
         lib_cold = [(t, i.long() if case["kernel"] == "gather_lanes" else i) for t, i in cold]
         row.update(
             ms=time_cuda(lambda: kernel(table, idx), reps),
@@ -283,38 +352,32 @@ def run_case(case: dict, dev: torch.device, reps: int = 200) -> dict:
     return row
 
 
-def _launch_parts(dev, table, idx):
-    """The parts of a ``gather_rows`` launch on the card, each as a
-    callable, for ``host_cost``; the bound C call launches the kernel."""
-    import ctypes
-
-    from ..ops import _build
-
-    out = gt.gather_rows(table, idx)
-    fn = gt._fn("gather_rows")
+def _launch_parts(dev, table, sel):
+    """The parts of a ``gather_lanes`` launch on the card, each as a
+    callable, for ``host_cost``: the output allocation, the current stream,
+    the pointers, and the kernel module's entry with the wrapper's
+    arguments, once refused at once (no rows: the call alone) and once
+    launching the kernel."""
+    out = gt.gather_lanes(table, sel)
+    fn = gt._kernels().gather_lanes
     index = dev.index or 0
-    args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), 1, 1, 1, 0)
-    vp = ctypes.c_void_p
+    ptrs = (table.data_ptr(), sel.data_ptr(), out.data_ptr())
     return {
-        "checks": lambda: gt._check("gather_rows", table, idx, 2, 1),
-        "new_empty": lambda: table.new_empty((1, 4)),
-        "torch_empty": lambda: torch.empty((1, 4), dtype=torch.float32, device=dev),
-        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "new_empty": lambda: table.new_empty((1, 1)),
+        "empty_like": lambda: torch.empty_like(sel, dtype=table.dtype),
         "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(index),
-        "c_void_p_objects": lambda: (vp(args[0]), vp(args[1]), vp(args[2]), vp(args[0])),
-        "data_ptrs": lambda: (table.data_ptr(), idx.data_ptr(), out.data_ptr()),
-        "library_lookup_locked": lambda: _build.load("gather", gt._declare),
-        "c_call_launch": lambda: fn(*args, torch._C._cuda_getCurrentRawStream(index)),
+        "data_ptrs": lambda: (table.data_ptr(), sel.data_ptr(), out.data_ptr()),
+        "call_refused": lambda: fn(*ptrs, 0, 4, 1, 1, 4, 0),
+        "call_launch": lambda: fn(*ptrs, 1, 4, 1, 1, 4, torch._C._cuda_getCurrentRawStream(index)),
     }
 
 
 def host_cost(device=None, reps: int = 10000, parts: bool = False) -> dict:
-    """Host microseconds per call of each whole gather wrapper call, over
-    ``reps`` calls on the card, at a one-row shape (so the device keeps
-    up). With ``parts``, also each part of a launch: the wrapper's checks,
-    the output allocation, the current stream as a ``Stream`` object and as
-    a raw handle, ctypes ``c_void_p`` objects against plain ints, the
-    library lookup under its lock and the bound C call alone."""
+    """Host microseconds per call of each whole gather wrapper call and of
+    the library calls beside them (``torch.gather(1)``, ``index_select``),
+    over ``reps`` calls on the card, at a one-row shape (so the device keeps
+    up). With ``parts``, also the parts of a ``gather_lanes`` launch
+    (``_launch_parts``)."""
     import time
 
     dev = resolve_device(device)
@@ -323,13 +386,16 @@ def host_cost(device=None, reps: int = 10000, parts: bool = False) -> dict:
     table = torch.zeros((4, 4), device=dev)
     idx = torch.zeros(1, dtype=torch.int32, device=dev)
     sel = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    sel64 = sel.long()
     calls = {
         "gather_rows": lambda: gt.gather_rows(table, idx),
         "gather_lanes": lambda: gt.gather_lanes(table, sel),
         "gather_cols": lambda: gt.gather_cols(table, idx),
+        "torch_gather": lambda: torch.gather(table, 1, sel64),
+        "index_select": lambda: table.index_select(0, idx),
     }
     if parts:
-        calls = {**_launch_parts(dev, table, idx), **calls}
+        calls = {**_launch_parts(dev, table, sel), **calls}
     res = {"phase": "host_cost", "reps": reps, "device": str(dev), "us_per_call": {}}
     for name, f in calls.items():
         for _ in range(100):
@@ -344,11 +410,12 @@ def host_cost(device=None, reps: int = 10000, parts: bool = False) -> dict:
 
 
 def run(device=None, shrink: int = 1, reps: int = 200, main_path: bool = False) -> List[dict]:
-    """Run the six variants (and with ``main_path`` the hash-mirror and
-    mapper shapes) on ``device`` (None: the card). Returns one row per
-    variant; raises on any mismatch with the plain version."""
+    """Run the six variants (and with ``main_path`` the hash-mirror,
+    mapper and selection shapes) on ``device`` (None: the card). Returns
+    one row per variant; raises on any mismatch with the plain version."""
     dev = resolve_device(device)
-    extra = mirror_cases(shrink) + mapper_cases(shrink) if main_path else []
+    extra = (mirror_cases(shrink) + mapper_cases(shrink) + selection_cases(shrink)
+             if main_path else [])
     cases = make_cases(shrink) + extra
     return [run_case(case, dev, reps) for case in cases]
 
@@ -358,7 +425,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default=None, help="'cpu' runs the plain versions; default: the card")
     ap.add_argument("--shrink", type=int, default=1, help="divide every row count by this")
     ap.add_argument("--main-path", action="store_true",
-                    help="add the main path's shapes: the hash mirrors and the mapper's slab")
+                    help="add the main path's shapes: the hash mirrors, the mapper's slab "
+                    "and the kNN selection")
     ap.add_argument("--host-cost", action="store_true",
                     help="also time each part of a launch's host path (card only)")
     args = ap.parse_args(argv)

@@ -397,30 +397,141 @@ def test_mirror_probes_gather_through_the_kernel_on_the_card():
     assert gt.launches["gather_rows"] == before + 3
 
 
+# gather_lanes: (rows, lanes in, lanes out) at the probe's shape, the
+# selection's, one that ends inside a staged tile, K 4 of 128 and one row;
+# sources of each lane width the kernel copies. The shapes pick the
+# kernel's regime (csrc/gather.cu): probe and tile_end (K >= L / 4, K % 4
+# == 0) run staged, the others narrow.
+LANE_SHAPES = {"probe": (16384, 128, 128), "select_mapper": (16384, 81, 6),
+               "select_tracker": (8192, 81, 16), "ragged": (1531, 128, 37),
+               "tile_end": (1003, 128, 64), "k4": (4099, 128, 4), "one_row": (1, 81, 1)}
+LANE_KINDS = {"bool": (torch.bool, ()), "f32": (torch.float32, ()),
+              "i64": (torch.int64, ()), "f32x4": (torch.float32, (4,))}
+
+
+def _lanes_inputs(shape, kind, idx_type, dev, seed=3):
+    rows, lanes, k = LANE_SHAPES[shape]
+    dtype, tail = LANE_KINDS[kind]
+    g = torch.Generator().manual_seed(seed)
+    if dtype is torch.bool:
+        src = torch.rand((rows, lanes), generator=g) < 0.5
+    elif dtype is torch.int64:
+        src = torch.randint(-(1 << 62), 1 << 62, (rows, lanes), generator=g)
+    else:
+        src = torch.randn((rows, lanes, *tail), generator=g)
+    sel = torch.randint(0, lanes, (rows, k), generator=g)
+    return src.to(dev), sel.to(dev, IDX_TYPES[idx_type])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
-def test_gather_lanes_kernel_is_exact(idx_type):
+@pytest.mark.parametrize("kind", sorted(LANE_KINDS))
+@pytest.mark.parametrize("shape", sorted(LANE_SHAPES))
+def test_gather_lanes_kernel_is_exact(shape, kind, idx_type):
+    """Every lane width and both selector types, in the regime each shape
+    takes, equal the plain version bit for bit and launch once."""
     from clid_slam_torch.ops import gather as gt
 
     dev = _cuda()
-    rng = np.random.default_rng(3)
-    src = torch.from_numpy(rng.normal(size=(1531, 128)).astype(np.float32)).to(dev)
-    sel = torch.from_numpy(rng.integers(0, 128, (1531, 37))).to(dev, IDX_TYPES[idx_type])
+    src, sel = _lanes_inputs(shape, kind, idx_type, dev)
     before = gt.launches["gather_lanes"]
     out = gt.gather_lanes(src, sel)
+    torch.cuda.synchronize()
     assert gt.launches["gather_lanes"] == before + 1
-    assert torch.equal(out, gt.gather_lanes_reference(src, sel))
+    want = gt.gather_lanes_reference(src, sel)
+    assert out.dtype == want.dtype and torch.equal(out, want)
+
+
+@functools.lru_cache(maxsize=1)
+def _selection_cases():
+    from clid_slam_torch.tools import probe_gather as pg
+
+    return {c["variant"]: c for c in pg.selection_cases()}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
-def test_gather_cols_kernel_is_exact(idx_type):
+@pytest.mark.parametrize("variant", [f"select {w} {s}" for w in ("mapper", "tracker")
+                                     for s in ("d2s", "h", "pvalid", "mir")])
+def test_gather_lanes_kernel_is_exact_at_the_selection_shapes(variant, idx_type):
+    """The kNN selection's lane gathers with the path's selectors
+    (smallest_k of a frame's probe), as the path hands them over (the
+    first K columns of the sort, rows 81 apart) and contiguous."""
+    from clid_slam_torch.models.neural_map import smallest_k
     from clid_slam_torch.ops import gather as gt
 
     dev = _cuda()
-    rng = np.random.default_rng(4)
-    table_t = torch.from_numpy(rng.normal(size=(8, 98304)).astype(np.float32)).to(dev)
-    idx = torch.from_numpy(np.sort(rng.integers(0, 98304, 5003))).to(dev, IDX_TYPES[idx_type])
+    case = _selection_cases()[variant]
+    src = torch.from_numpy(case["table"]).to(dev)
+    strided = torch.from_numpy(case["idx"]).to(dev, IDX_TYPES[idx_type])[:, :case["k"]]
+    assert strided.stride() == (81, 1)
+    if variant.endswith("d2s"):
+        assert torch.equal(smallest_k(src, case["k"]), strided.long())
+    want = gt.gather_lanes_reference(src, strided)
+    assert torch.equal(gt.gather_lanes(src, strided), want)
+    assert torch.equal(gt.gather_lanes(src, strided.contiguous()), want)
+
+
+@pytest.mark.gpu
+def test_gather_lanes_kernel_passes_the_gradient():
+    """A source that needs a gradient (query_feature's distances when its
+    points do): the kernel's output carries torch.gather's backward."""
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    src, _ = _lanes_inputs("select_mapper", "f32", "i64", dev)
+    # distinct lanes a row, as smallest_k picks them (repeated lanes would
+    # sum their gradients in an order that differs between runs)
+    sel = torch.argsort(torch.rand(src.shape, device=dev), dim=1)[:, :6]
+    a, b = src.clone().requires_grad_(True), src.clone().requires_grad_(True)
+    w = torch.randn(sel.shape, device=dev)
+    before = gt.launches["gather_lanes"]
+    (gt.gather_lanes(a, sel) * w).sum().backward()
+    (torch.gather(b, 1, sel) * w).sum().backward()
+    assert gt.launches["gather_lanes"] == before + 1
+    assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.gpu
+def test_gather_lanes_rejects_what_the_kernel_cannot_take():
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    sel = torch.zeros((64, 6), dtype=torch.int64, device=dev)
+    base = torch.zeros(64 * 81 * 4 + 4, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        gt.gather_lanes(base[1:1 + 64 * 81 * 4].view(64, 81, 4), sel)
+    with pytest.raises(ValueError, match="contiguous"):
+        gt.gather_lanes(torch.zeros(81, 64, device=dev).t(), sel)
+    with pytest.raises(ValueError, match="adjacent"):
+        gt.gather_lanes(torch.zeros(64, 81, device=dev), torch.zeros((6, 64), dtype=torch.int64,
+                                                                    device=dev).t())
+    with pytest.raises(ValueError, match="selectors on"):
+        gt.gather_lanes(torch.zeros(64, 81, device=dev), sel.cpu())
+
+
+# gather_cols: (table rows, table width, count) at the probe's shape, counts
+# that are not a multiple of 4, one row and one index
+COL_SHAPES = {"probe": (8, 98304, 98304), "ragged": (8, 98304, 5003),
+              "ragged_3": (8, 1000, 4099), "one_row": (1, 5000, 4096), "one": (3, 7, 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("idx_type", sorted(IDX_TYPES))
+@pytest.mark.parametrize("shape", sorted(COL_SHAPES))
+def test_gather_cols_kernel_is_exact(shape, idx_type, offset):
+    """Sorted indices with duplicates as the probe's, on the 16-byte path
+    and (counts not a multiple of 4, or indices one element off their
+    16-byte alignment: ``offset``) on the single-float one."""
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    rows, width, count = COL_SHAPES[shape]
+    rng = np.random.default_rng(rows + count)
+    table_t = torch.from_numpy(rng.normal(size=(rows, width)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(np.sort(rng.integers(0, width, count + offset))).to(
+        dev, IDX_TYPES[idx_type])[offset:]
     before = gt.launches["gather_cols"]
     out = gt.gather_cols(table_t, idx)
     assert gt.launches["gather_cols"] == before + 1
@@ -463,6 +574,33 @@ def test_autograd_loop_gathers_through_the_kernel_on_the_card():
     assert gt.launches["gather_rows"] >= gathers + 2 * 2
     assert any("mlp_leaky_relu" in str(w.message) for w in caught)
     assert not out["failed"] and np.all(np.isfinite(out["odom_poses"]))
+
+
+@pytest.mark.gpu
+def test_tracked_frames_gather_lanes_in_the_tracker_and_the_mapper(monkeypatch):
+    """Each tracked frame picks its kNN lanes through the gather_lanes
+    kernel: 3 launches from the tracker's candidates, 4 from the mapper's
+    batch."""
+    from clid_slam_torch.mapping import mapper
+    from clid_slam_torch.odometry import iekf
+    from clid_slam_torch.ops import gather as gt
+
+    system, seq = _tiny_system()
+    system.process_frame(0, seq.scans[0], seq.imu_windows[0])
+    system.sync()
+    by_site = {"tracker": 0, "mapper": 0}
+    for site, module in (("tracker", iekf), ("mapper", mapper)):
+        def counted(src, sel, site=site):
+            before = gt.launches["gather_lanes"]
+            out = gt.gather_lanes(src, sel)
+            by_site[site] += gt.launches["gather_lanes"] - before
+            return out
+        monkeypatch.setattr(module, "gather_lanes", counted)
+    for i in (1, 2):
+        system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    out = system.sync()
+    assert by_site == {"tracker": 3 * 2, "mapper": 4 * 2}
+    assert not out["failed"]
 
 
 @pytest.mark.gpu
