@@ -2,7 +2,7 @@
 """Drive the PyTorch port (clid_slam_torch) on one CUDA card.
 
     python3 chip_smoke.py             # all phases
-    python3 chip_smoke.py --profile   # adds a torch.profiler phase
+    python3 chip_smoke.py --profile   # adds torch.profiler phases
 
 Phases, each printing one JSON line:
   device  the card (nvidia-smi name and power limit);
@@ -45,6 +45,23 @@ Phases, each printing one JSON line:
           kept rows in order and the rebuilt hash resolves each of them;
   stream_fallback  the small sequence with leaky ReLU, which the fused
           kernel does not take: 12 frames on the mapper's autograd loop;
+  stream_dynba     the small configuration with the dynamic filter on every
+          tracked frame and a 20-frame sliding-window BA every 10 frames
+          from frame 20 (80 iterations of 16384 pool rows, at frames 29 and
+          39), 40 frames of the small sequence (10 warm-up): ATE under 0.3 m
+          (the JAX package's own gate for the two together), the BA's ms
+          per call (CUDA events around each call) and the share of the
+          points the map trains on that the filter dropped, frame by frame;
+          the launch counts gain the filter's (4 gather_lanes a tracked
+          frame) and the BA's (4 gather_lanes an iteration);
+  checkpoint_resume  the same configuration for frames 0-24 in a fresh
+          system, saved with save_checkpoint, loaded into another fresh
+          system and continued over frames 25-39: its trajectory, losses,
+          iteration counts and every state tensor equal stream_dynba's bit
+          for bit;
+  stream_requery   the small configuration with track_cached=False (the
+          map re-queried at every IESEKF iteration), 12 frames: ATE under
+          0.2 m and at least 3 gather_lanes launches an iteration;
   kernels the per-kernel summary line.
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 
@@ -166,12 +183,49 @@ def make_system(large, n_frames, device, seq=None, **overrides):
     return cfg, seq, system
 
 
-def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides):
+def time_ba_calls(system):
+    """Wrap the system's BA step in CUDA events; returns the list that each
+    call appends (frame_id, start, end) to."""
+    import torch
+
+    calls, inner = [], system._ba_step
+
+    def timed(state, frame_id):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(state, frame_id)
+        end.record()
+        calls.append((frame_id, start, end))
+        return out
+
+    system._ba_step = timed
+    return calls
+
+
+def expected_launches(cfg, n_frames, track_iters, ba_frames):
+    """The least gather_rows and gather_lanes launches a run makes: per
+    tracked frame the mapper's slab and mirror gathers and the tracker's,
+    the insert's and the labels' mirror gathers (6 rows), the selection's
+    lane gathers (3 in the tracker, 4 in the mapper); with the re-querying
+    tracker 3 lane gathers an IESEKF iteration; the dynamic filter's query
+    (2 rows, 4 lanes) a tracked frame; the BA's query and pose gather (3
+    rows, 4 lanes) an iteration."""
+    tracked = sum(1 for i in range(n_frames) if cfg.track_on and i > 0)
+    tracker_lanes = 3 * (int(sum(track_iters[1:n_frames])) if not cfg.track_cached else tracked)
+    rows, lanes = 6 * tracked, tracker_lanes + 4 * tracked
+    if cfg.dynamic_filter_on:
+        rows, lanes = rows + 2 * tracked, lanes + 4 * tracked
+    n_ba = len(ba_frames) * cfg.ba_iters
+    return tracked, rows + 3 * n_ba, lanes + 4 * n_ba
+
+
+def stream_phase(phase, large, n_frames, warmup, device, fused=True, ate_gate=0.2,
+                 **overrides):
     """Drive StreamingSlam over a bench sequence as bench.py times it and
-    check the result. The kernels' launch counts are set to 0 just before
-    the run and read just after. ``fused`` says whether tracked frames are
-    expected on the map_loop kernel (else on the autograd loop). Returns the
-    phase's line and the system."""
+    check the result (ATE under ``ate_gate``). The kernels' launch counts
+    are set to 0 just before the run and read just after. ``fused`` says
+    whether tracked frames are expected on the map_loop kernel (else on the
+    autograd loop). Returns the phase's line and the system."""
     import torch
 
     from clid_slam_torch.ops import gather as gt
@@ -179,6 +233,7 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
     from clid_slam_torch.utils import metrics
 
     cfg, seq, system = make_system(large, n_frames, device, **overrides)
+    ba_calls = time_ba_calls(system) if system._ba_step is not None else []
     torch.cuda.reset_peak_memory_stats()
     frame_ms = []
     ml.launches = 0  # count only this path's launches
@@ -202,7 +257,8 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
     m = metrics.absolute_error(est, seq.poses[:n_frames], align=False)
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
     last_err = est[-1, :3, 3] - seq.poses[n_frames - 1, :3, 3]
-    tracked = sum(1 for i in range(n_frames) if cfg.track_on and i > 0)
+    ba_frames = [f for f, _, _ in ba_calls]
+    tracked, want_rows, want_lanes = expected_launches(cfg, n_frames, out["track_iters"], ba_frames)
     res = {
         "phase": phase, "frames": n_frames, "warmup": warmup,
         "warmup_frame_ms": frame_ms, "steady_ms_per_frame": steady * 1e3,
@@ -215,28 +271,38 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
         "map_loop_launches": launches, "gather_rows_launches": gathers["gather_rows"],
         "gather_lanes_launches": gathers["gather_lanes"],
         "tracked_frames": tracked,
+        "gather_rows_launches_least": want_rows, "gather_lanes_launches_least": want_lanes,
         "peak_mem_gb": peak_mem_gb,
     }
+    if cfg.dynamic_filter_on:
+        res["filter_dropped_share"] = [
+            {"frame": f, "train_points": b, "dropped": b - a, "share": (b - a) / max(b, 1)}
+            for f, b, a in out["filtered"]]
+    if ba_calls:
+        res["ba"] = {"frames": ba_frames, "iters": cfg.ba_iters, "bs": cfg.ba_bs,
+                     "window": cfg.ba_frame,
+                     "ms_per_call": [s.elapsed_time(e) for _, s, e in ba_calls]}
     emit(res)
     if out["failed"]:
         raise AssertionError("tracking failed")
-    if not m["ate_rmse_m"] < 0.2:
-        raise AssertionError(f"ATE {m['ate_rmse_m']} >= 0.2 m")
+    if not m["ate_rmse_m"] < ate_gate:
+        raise AssertionError(f"ATE {m['ate_rmse_m']} >= {ate_gate} m")
     if launches != (tracked if fused else 0):
         raise AssertionError(f"map_loop launched {launches} times for {tracked} tracked frames")
-    # per tracked frame at least: the mapper's two slab gathers, and the
-    # mirror gathers of the tracker's and the mapper's probes, the insert and
-    # the labels
-    if gathers["gather_rows"] < 6 * tracked:
+    if gathers["gather_rows"] < want_rows:
         raise AssertionError(
-            f"gather_rows launched {gathers['gather_rows']} times for {tracked} tracked frames"
+            f"gather_rows launched {gathers['gather_rows']} times, expected at least {want_rows}"
         )
-    # per tracked frame at least: the kNN selection's lane gathers, 3 in the
-    # tracker's candidates and 4 in the mapper's batch
-    if gathers["gather_lanes"] < 7 * tracked:
+    if gathers["gather_lanes"] < want_lanes:
         raise AssertionError(
-            f"gather_lanes launched {gathers['gather_lanes']} times for {tracked} tracked frames"
+            f"gather_lanes launched {gathers['gather_lanes']} times, expected at least {want_lanes}"
         )
+    want_ba = [f for f in range(n_frames) if cfg.ba_freq_frame > 0 and f >= cfg.ba_frame
+               and (f + 1) % cfg.ba_freq_frame == 0]
+    if ba_frames != want_ba:
+        raise AssertionError(f"BA at frames {ba_frames}, expected at {want_ba}")
+    if cfg.dynamic_filter_on and [f for f, _, _ in out["filtered"]] != list(range(1, n_frames)):
+        raise AssertionError(f"the filter ran at frames {[f for f, _, _ in out['filtered']]}")
     want_prunes = (
         [f for f in range(n_frames) if (f + 1) % cfg.prune_freq_frame == 0]
         if cfg.prune_map_on else []
@@ -246,6 +312,57 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, **overrides
     if any(not 0 < p["points_after"] <= p["points_before"] for p in res["prunes"]):
         raise AssertionError(f"a prune lost the map or grew it: {res['prunes']}")
     return res, system
+
+
+def checkpoint_resume(reference, n_frames, split, device, **overrides):
+    """The configuration of ``reference`` (a finished run of ``n_frames``)
+    for frames 0..split-1 in a fresh system, saved, loaded into another
+    fresh system and continued to the end: every output and state tensor
+    must equal the reference run's bit for bit."""
+    import tempfile
+
+    import torch
+
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+
+    cfg, seq, first = make_system(False, n_frames, device, **overrides)
+    ml.launches = 0
+    gt.reset_launches()
+    for i in range(split):
+        first.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "stream.npz")
+        t0 = time.perf_counter()
+        first.save_checkpoint(path)
+        save_s, size_mb = time.perf_counter() - t0, os.path.getsize(path) / 1e6
+        del first
+        _, _, resumed = make_system(False, n_frames, device, seq=seq, **overrides)
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(path)
+        load_s = time.perf_counter() - t0
+    for i in range(split, n_frames):
+        resumed.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    resumed.block()
+    launches, gathers = ml.launches, dict(gt.launches)
+    got, want = resumed.sync(), reference.sync()
+    differ = [k for k in ("odom_poses", "losses", "track_iters", "travel_dist")
+              if not np.array_equal(got[k], want[k])]
+    differ += [k for k in ("neural_points", "insert_dropped", "prunes", "filtered", "failed")
+               if got[k] != want[k]]
+    leaves = list(zip(resumed.state.leaves(), reference.state.leaves()))
+    differ += [f"leaf {i}" for i, (a, b) in enumerate(leaves) if not (
+        torch.equal(a.get_state(), b.get_state()) if isinstance(a, torch.Generator)
+        else torch.equal(a, b))]
+    res = {"phase": "checkpoint_resume", "frames": n_frames, "saved_after_frame": split - 1,
+           "leaves": len(leaves), "file_mb": size_mb, "save_s": save_s, "load_s": load_s,
+           "differ": differ, "map_loop_launches": launches,
+           "gather_rows_launches": gathers["gather_rows"],
+           "gather_lanes_launches": gathers["gather_lanes"]}
+    emit(res)
+    if differ:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {differ}")
+    return res
 
 
 def prune_check(system, n_frames):
@@ -315,6 +432,11 @@ def prune_check(system, n_frames):
     return res
 
 
+def is_stage(name):
+    """The profiler ranges of StreamingSlam's stages: ``frame.*`` and ``ba``."""
+    return name.startswith("frame.") or name == "ba"
+
+
 def launch_attribution(prof, n_profiled):
     """Device time per frame of every device activity, by the ``frame.*``
     range whose host span holds the runtime call that launched it. The
@@ -328,14 +450,14 @@ def launch_attribution(prof, n_profiled):
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.profiler.kineto_results.events()
     ranges = [(e.start_ns(), e.end_ns(), e.name()) for e in events
-              if e.name().startswith("frame.") and e.device_type() != cuda]
+              if is_stage(e.name()) and e.device_type() != cuda]
     launch_at = {e.correlation_id(): e.start_ns() for e in events if e.device_type() != cuda
                  and any(w in e.name() for w in ("Launch", "Memcpy", "Memset"))}
     by_stage, hand = {}, {}
     for e in events:
         # device activity only: the frame.* ranges are mirrored onto the
         # device's timeline as annotations, which are no work
-        if e.device_type() != cuda or e.is_user_annotation() or e.name().startswith("frame."):
+        if e.device_type() != cuda or e.is_user_annotation() or is_stage(e.name()):
             continue
         t = launch_at.get(e.correlation_id(), launch_at.get(e.linked_correlation_id()))
         stage = "unlinked" if t is None else next(
@@ -353,14 +475,14 @@ def launch_attribution(prof, n_profiled):
     return by_stage, hand
 
 
-def profile_phase(large, n_frames, n_profiled, device):
+def profile_phase(large, n_frames, n_profiled, device, **overrides):
     """torch.profiler over the last ``n_profiled`` frames of a fresh run:
     device time per stage range and per kernel, and the device busy share
     of the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, seq, system = make_system(large, n_frames, device)
+    cfg, seq, system = make_system(large, n_frames, device, **overrides)
     for i in range(n_frames - n_profiled):
         system.process_frame(i, seq.scans[i], seq.imu_windows[i])
     system.block()
@@ -381,12 +503,12 @@ def profile_phase(large, n_frames, n_profiled, device):
     # device time of the kernels launched inside it
     stages = {}
     for e in events:
-        if e.key.startswith("frame.") and e.device_type != cuda:
+        if is_stage(e.key) and e.device_type != cuda:
             stages[e.key] = {"device_ms_per_frame": dev_ms(e) / n_profiled,
                              "host_ms_per_frame": e.cpu_time_total / 1e3 / n_profiled}
     # device work: the kernel (and memcpy/memset) rows, each counted once
     kernels = sorted(
-        (e for e in events if e.device_type == cuda and not e.key.startswith("frame.")),
+        (e for e in events if e.device_type == cuda and not is_stage(e.key)),
         key=self_dev_ms, reverse=True,
     )
     busy_ms = sum(self_dev_ms(e) for e in kernels)
@@ -416,7 +538,8 @@ def profile_phase(large, n_frames, n_profiled, device):
         if e.device_type != cuda and re.search("gather|scatter", e.key) and self_dev_ms(e) > 0
     ]
     scatter_gather.sort(key=lambda r: r["device_ms_per_frame"], reverse=True)
-    res = {"phase": "profile", "large": large, "frames": n_profiled, "wall_ms_per_frame": wall_ms / n_profiled,
+    res = {"phase": "profile", "large": large, "overrides": overrides, "frames": n_profiled,
+           "wall_ms_per_frame": wall_ms / n_profiled,
            "device_busy_ms_per_frame": busy_ms / n_profiled,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "stages": stages, "hand_kernels_by_stage": hand, "top_kernels": top,
@@ -507,7 +630,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 5 steady frames of a fresh small run and of a "
-                    "fresh 60-frame large run")
+                    "fresh 60-frame large run, and the last 10 frames of stream_dynba's")
     args = ap.parse_args()
 
     import torch
@@ -551,12 +674,19 @@ def main():
     del large_system
     fallback = stream_phase("stream_fallback", False, 12, 10, device, fused=False,
                             mlp_leaky_relu=True)[0]
+    dynba_kw = dict(dynamic_filter_on=True, ba_frame=20, ba_freq_frame=10)
+    dynba, dynba_system = stream_phase("stream_dynba", False, 40, 10, device, ate_gate=0.3,
+                                       **dynba_kw)
+    resumed = checkpoint_resume(dynba_system, 40, 25, device, **dynba_kw)
+    del dynba_system
+    requery = stream_phase("stream_requery", False, 12, 10, device, track_cached=False)[0]
     if args.profile:
         profile_phase(False, 20, 5, device)
         profile_phase(True, 60, 5, device)
+        profile_phase(False, 40, 10, device, **dynba_kw)  # frames 30-39, BA at 39
 
     def by_path(key):
-        return {r["phase"]: r[key] for r in (small, large, fallback)}
+        return {r["phase"]: r[key] for r in (small, large, fallback, dynba, resumed, requery)}
 
     main_case = cases[0]  # the bench config: 1 hidden layer, no layer norm
     # launches: the count on the large run, this script's full-width path;

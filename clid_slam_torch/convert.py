@@ -5,7 +5,8 @@
 - ``stream_state_from_numpy`` takes the JAX ``StreamState`` leaves in tree
   order (the order of ``jax.tree_util.tree_leaves``, which
   ``StreamingSlam.save_checkpoint`` writes as leaf_0, leaf_1, ...) and
-  builds the port's ``StreamState``, maps and pool included.
+  builds the port's ``StreamState``, maps and pool included;
+  ``stream_state_to_numpy`` is its inverse.
 
 Nothing here imports JAX: callers hand over numpy arrays.
 """
@@ -129,3 +130,19 @@ def stream_state_from_numpy(leaves: Sequence, device=None) -> StreamState:
         local_map=local_map, pool=pool, mlp=mlps[0], color_mlp=mlps[1],
         sem_mlp=mlps[2], key=gen, losses=f32(losses), track_iters=i32(track_iters),
     )
+
+
+def stream_state_to_numpy(state: StreamState) -> list:
+    """The port's ``StreamState`` as numpy leaves in the JAX tree order.
+    The key slot holds the generator's initial seed as two uint32 words
+    (high, low), from which ``stream_state_from_numpy`` seeds; the
+    generator's current state is not a JAX leaf (``save_checkpoint``
+    stores it beside the leaves)."""
+    out = []
+    for x in state.leaves():
+        if isinstance(x, torch.Generator):
+            seed = x.initial_seed()
+            out.append(np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32))
+        else:
+            out.append(x.detach().cpu().numpy())
+    return out

@@ -148,6 +148,24 @@ def append_samples(
     return ReplayPool(data, valid, size, new_buf, new_count.to(torch.int32))
 
 
+def retransform_coords(
+    pool: ReplayPool, old_poses: torch.Tensor, new_poses: torch.Tensor
+) -> ReplayPool:
+    """Re-express the stored world coords after a pose correction (BA):
+    coords' = T_new[ts] · T_old[ts]⁻¹ · coords, each row by the poses of
+    its frame (``ts`` clipped to the pose table)."""
+    R_o, t_o = old_poses[:, :3, :3], old_poses[:, :3, 3]
+    R_n, t_n = new_poses[:, :3, :3], new_poses[:, :3, 3]
+    # diff = T_new @ inv(T_old):  R_d = R_n R_oᵀ,  t_d = t_n - R_d t_o
+    R_d = torch.sum(R_n[:, :, None, :] * R_o[:, None, :, :], dim=-1)
+    t_d = t_n - torch.sum(R_d * t_o[:, None, :], dim=-1)
+    ts = pool.data[:, _TS].to(torch.int64).clamp(0, old_poses.shape[0] - 1)
+    coords = torch.sum(R_d[ts] * pool.coords[:, None, :], dim=-1) + t_d[ts]
+    data = pool.data.clone()
+    data[:, _X : _X + 3] = coords
+    return replace(pool, data=data)
+
+
 def sample_batch_indices(
     pool: ReplayPool,
     bs: int,

@@ -270,7 +270,9 @@ def query_feature(
 ) -> QueryResult:
     """kNN feature interpolation (weighted_first mode,
     model/neural_points.py:553-769). Differentiable wrt ``points`` and
-    ``state.geo_feats``."""
+    ``state.geo_feats``; both backward passes sum in a fixed order (the
+    lane gathers' targets are distinct, the feature rows' are summed by
+    ``ops/gather.py:gather_rows_nd``), so a card run repeats bit for bit."""
     cap = map_capacity(state)
     d2, h, pvalid, mir = neighborhood_probe(
         state, points, nb_offs, resolution, max_valid_dist2,
@@ -287,7 +289,7 @@ def query_feature(
     knn_idx = torch.where(valid, idx_sel, torch.full_like(idx_sel, -1))
     safe = torch.where(valid, idx_sel, torch.full_like(idx_sel, cap))
 
-    feats = state.geo_feats[safe]
+    feats = gather_rows_nd(state.geo_feats, safe)
     if layer_norm:
         feats = layer_norm_feats(feats)
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))

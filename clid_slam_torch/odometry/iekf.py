@@ -1,15 +1,17 @@
 """IESEKF pieces of the streaming frame step (port of
-clid_slam_tpu/odometry/iekf.py): device IMU propagation and the
-candidate-cached iterated update. The host float64 ``IEKF`` of the JAX
-package is not ported (the classic driver is later work).
+clid_slam_tpu/odometry/iekf.py): device IMU propagation and the two
+iterated updates. The host float64 ``IEKF`` of the JAX package is not
+ported (the classic driver is later work).
 
 Device loops:
 - ``device_predict_imu`` composes the per-row rotation increments and the
   affine covariance maps with a log-depth (Hillis-Steele) scan, the same
   associative formulation as JAX's ``associative_scan``.
-- ``make_cached_update_fn`` runs the iterated update as a Python loop with
-  the JAX while-loop's exit rules (convergence, stagnation, low validity).
-  It reads the exit flag on the host once per iteration.
+- ``make_cached_update_fn`` (one probe per frame, dense math per
+  iteration) and ``make_update_iterated_fn`` (the map re-queried at every
+  iteration through ``make_h_reduce_fn``) share one Python loop with the
+  JAX while-loop's exit rules (convergence, stagnation, low validity). It
+  reads the exit flag on the host once per iteration.
 """
 
 from __future__ import annotations
@@ -104,6 +106,75 @@ def _equilibrated_solve(A, B):
     return torch.linalg.solve(An, Bn) * Dinv[:, None]
 
 
+def _normal_equations(points_imu, rot, grad, sdf_pred, valid, info_scale):
+    """The 6x6 reduction S = Hᵀ R⁻¹ H, b = Hᵀ R⁻¹ z over the valid points
+    (utils/error_state_iekf.py:249-262): H = [p × (Rᵀ g), g] and robust
+    weights. Returns (S6, b6, n_valid)."""
+    vf = valid.to(torch.float32)
+    grad_norm = torch.linalg.norm(grad, dim=-1)
+    gR = grad @ rot
+    h_rot = torch.linalg.cross(points_imu, gR, dim=-1)
+    H = torch.cat([h_rot, grad], -1)
+    w_grad = 1.0 / (1.0 + (grad_norm - 1.0) ** 2)
+    w_res = 0.4 / (0.4 + sdf_pred**2)
+    r_inv = info_scale * w_grad * w_res * vf
+    S6 = (H * r_inv[:, None]).T @ H
+    b6 = (H * r_inv[:, None]).T @ sdf_pred
+    return S6, b6, torch.sum(vf)
+
+
+def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, *, max_iteration, term_rad,
+                     term_thre_m, eps, min_valid_ratio, stagnation_iter):
+    """The iterated IESEKF update over ``h_reduce(rot, pos) -> (S6, b6,
+    n_valid)`` (utils/error_state_iekf.py:266-337). Returns (rot, pos,
+    rest, P_new, ok, n_iter)."""
+    dev = mask.device
+    n_total = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+    I18 = torch.eye(18, device=dev)
+    P_inv = _equilibrated_solve(P, I18)
+    rot, pos, rest, A_inv = rot0, pos0, rest0, P
+    n_valid = torch.zeros((), device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    prev_step = torch.full((), float("inf"), device=dev)
+    i = 0
+    while i < max_iteration:
+        drot = lie.so3_log(rot0.T @ rot)
+        dx_new = torch.cat([drot, pos - pos0, rest - rest0])
+        S6, b6, n_valid = h_reduce(rot, pos)
+        S18 = torch.zeros((18, 18), device=dev)
+        S18[:6, :6] = S6
+        b18 = torch.zeros(18, device=dev)
+        b18[:6] = b6
+        sol = _equilibrated_solve(S18 + P_inv, torch.cat([b18[:, None], S18, I18], 1))
+        KH = sol[:, 1:19]
+        A_inv = sol[:, 19:]
+        dx = -sol[:, 0] + (KH - I18) @ dx_new
+        # trust region: steps beyond the frame-level failure bound are
+        # solver blow-ups, never real motion
+        tran_raw = torch.linalg.norm(dx[3:6])
+        dx = dx * torch.clamp(10.0 / torch.clamp(tran_raw, min=1e-12), max=1.0)
+        rot = rot @ lie.so3_exp(dx[0:3])
+        pos = pos + dx[3:6]
+        rest = rest + dx[6:18]
+        tran_m = torch.linalg.norm(dx[3:6])
+        rot_rad = torch.linalg.norm(dx[0:3])
+        converged = (
+            (rot_rad < term_rad) & (tran_m < term_thre_m)
+            & torch.all(torch.abs(dx[6:]) < eps)
+        )
+        step = rot_rad + tran_m
+        stalled = (i >= stagnation_iter) & (step >= prev_step)
+        low_valid = (n_valid / n_total < min_valid_ratio) & (i == max_iteration - 1)
+        ok = ~low_valid
+        prev_step = step
+        i += 1
+        if bool(converged | low_valid | stalled):  # one host read per iteration
+            break
+    ok = ok & ~((n_valid / n_total < min_valid_ratio) & (i == max_iteration))
+    P_new = 0.5 * (A_inv + A_inv.T)
+    return rot, pos, rest, P_new, ok, torch.tensor(i, dtype=torch.int32, device=dev)
+
+
 def make_cached_update_fn(
     *,
     knn_k: int,
@@ -131,7 +202,11 @@ def make_cached_update_fn(
     iteration. Returns body(map_state, mlp, points_imu[S,3], mask[S], rot0,
     pos0, rest0[12], P, travel_dist, cur_ts, window) -> (rot, pos, rest,
     P_new, ok, n_iter)."""
-    term_rad = term_thre_deg * math.pi / 180.0
+    loop_kw = dict(
+        max_iteration=max_iteration, term_rad=term_thre_deg * math.pi / 180.0,
+        term_thre_m=term_thre_m, eps=eps, min_valid_ratio=min_valid_ratio,
+        stagnation_iter=stagnation_iter,
+    )
     offs_t = torch.as_tensor(nb_offs)
 
     def build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts, window):
@@ -157,9 +232,7 @@ def make_cached_update_fn(
 
     def dense_update(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P):
         cand_pos, cand_feat, cvalid = candidates
-        dev = points_imu.device
-        n_total = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
-        iot = torch.arange(n_cand, device=dev)
+        iot = torch.arange(n_cand, device=points_imu.device)
         tie = iot[None, :] < iot[:, None]  # [C,C] j<i
 
         def h_reduce_cached(rot, pos):
@@ -184,7 +257,6 @@ def make_cached_update_fn(
                 )
                 pred = dec.sdf(mlp, feature, sdf_scale, leaky=mlp_leaky)
                 (grad,) = torch.autograd.grad(pred.sum(), pc)
-            sdf_pred = pred.detach()
             grad_norm = torch.linalg.norm(grad, dim=-1)
             valid = (
                 mask
@@ -192,64 +264,105 @@ def make_cached_update_fn(
                 & (grad_norm > min_grad_norm)
                 & (grad_norm < max_grad_norm)
             )
-            vf = valid.to(torch.float32)
-            gR = grad @ rot
-            h_rot = torch.linalg.cross(points_imu, gR, dim=-1)
-            H = torch.cat([h_rot, grad], -1)
-            w_grad = 1.0 / (1.0 + (grad_norm - 1.0) ** 2)
-            w_res = 0.4 / (0.4 + sdf_pred**2)
-            r_inv = info_scale * w_grad * w_res * vf
-            S6 = (H * r_inv[:, None]).T @ H
-            b6 = (H * r_inv[:, None]).T @ sdf_pred
-            return S6, b6, torch.sum(vf)
+            return _normal_equations(points_imu, rot, grad, pred.detach(), valid, info_scale)
 
-        I18 = torch.eye(18, device=dev)
-        P_inv = _equilibrated_solve(P, I18)
-        rot, pos, rest, A_inv = rot0, pos0, rest0, P
-        n_valid = torch.zeros((), device=dev)
-        ok = torch.ones((), dtype=torch.bool, device=dev)
-        prev_step = torch.full((), float("inf"), device=dev)
-        i = 0
-        while i < max_iteration:
-            drot = lie.so3_log(rot0.T @ rot)
-            dx_new = torch.cat([drot, pos - pos0, rest - rest0])
-            S6, b6, n_valid = h_reduce_cached(rot, pos)
-            S18 = torch.zeros((18, 18), device=dev)
-            S18[:6, :6] = S6
-            b18 = torch.zeros(18, device=dev)
-            b18[:6] = b6
-            sol = _equilibrated_solve(S18 + P_inv, torch.cat([b18[:, None], S18, I18], 1))
-            KH = sol[:, 1:19]
-            A_inv = sol[:, 19:]
-            dx = -sol[:, 0] + (KH - I18) @ dx_new
-            # trust region: steps beyond the frame-level failure bound are
-            # solver blow-ups, never real motion
-            tran_raw = torch.linalg.norm(dx[3:6])
-            dx = dx * torch.clamp(10.0 / torch.clamp(tran_raw, min=1e-12), max=1.0)
-            rot = rot @ lie.so3_exp(dx[0:3])
-            pos = pos + dx[3:6]
-            rest = rest + dx[6:18]
-            tran_m = torch.linalg.norm(dx[3:6])
-            rot_rad = torch.linalg.norm(dx[0:3])
-            converged = (
-                (rot_rad < term_rad) & (tran_m < term_thre_m)
-                & torch.all(torch.abs(dx[6:]) < eps)
-            )
-            step = rot_rad + tran_m
-            stalled = (i >= stagnation_iter) & (step >= prev_step)
-            low_valid = (n_valid / n_total < min_valid_ratio) & (i == max_iteration - 1)
-            ok = ~low_valid
-            prev_step = step
-            i += 1
-            if bool(converged | low_valid | stalled):  # one host read per iteration
-                break
-        ok = ok & ~((n_valid / n_total < min_valid_ratio) & (i == max_iteration))
-        P_new = 0.5 * (A_inv + A_inv.T)
-        return rot, pos, rest, P_new, ok, torch.tensor(i, dtype=torch.int32, device=dev)
+        return _iterated_update(h_reduce_cached, mask, rot0, pos0, rest0, P, **loop_kw)
 
     def body(map_state, mlp, points_imu, mask, rot0, pos0, rest0, P,
              travel_dist, cur_ts, window):
         cands = build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts, window)
         return dense_update(cands, mlp, points_imu, mask, rot0, pos0, rest0, P)
+
+    return body
+
+
+def make_h_reduce_fn(
+    *,
+    knn_k: int,
+    nb_offs,
+    resolution: float,
+    max_valid_dist2: float,
+    sdf_scale: float,
+    min_grad_norm: float,
+    max_grad_norm: float,
+    min_nn_count: int,
+    mlp_leaky: bool = False,
+    encode_vecs=None,
+    layer_norm: bool = False,
+    info_scale: float = 1000.0,
+):
+    """The measurement reduction with the map queried at the given pose
+    (``query_feature`` over the whole neighbourhood, weighted_first).
+    Returns h_reduce(map_state, mlp, points_imu[N,3], mask[N], R[3,3], t[3],
+    travel_dist, cur_ts, window) -> (S6[6,6], b6[6], n_valid)."""
+    offs_t = torch.as_tensor(nb_offs)
+
+    def h_reduce(map_state, mlp, points_imu, mask, R, t, travel_dist, cur_ts, window):
+        pc_map = (points_imu @ R.T + t).detach()
+        with torch.enable_grad():
+            pc = pc_map.requires_grad_(True)
+            q = nm.query_feature(
+                map_state, pc, offs_t.to(pc.device), resolution, max_valid_dist2, knn_k,
+                travel_dist, cur_ts, window, True, encode_vecs=encode_vecs,
+                layer_norm=layer_norm,
+            )
+            pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky)
+            (grad,) = torch.autograd.grad(pred.sum(), pc)
+        grad_norm = torch.linalg.norm(grad, dim=-1)
+        valid = (
+            mask
+            & (q.nn_count >= min_nn_count)
+            & (grad_norm > min_grad_norm)
+            & (grad_norm < max_grad_norm)
+        )
+        return _normal_equations(points_imu, R, grad, pred.detach(), valid, info_scale)
+
+    return h_reduce
+
+
+def make_update_iterated_fn(
+    *,
+    knn_k: int,
+    nb_offs,
+    resolution: float,
+    max_valid_dist2: float,
+    sdf_scale: float,
+    min_grad_norm: float,
+    max_grad_norm: float,
+    min_nn_count: int,
+    max_iteration: int,
+    term_thre_deg: float,
+    term_thre_m: float,
+    eps: float = 0.001,
+    min_valid_ratio: float = 0.2,
+    mlp_leaky: bool = False,
+    encode_vecs=None,
+    layer_norm: bool = False,
+    stagnation_iter: int = 10,
+    info_scale: float = 1000.0,
+):
+    """The iterated update that re-queries the map at every iteration
+    (``track_cached=False``): the body of ``make_cached_update_fn`` with
+    ``make_h_reduce_fn`` in place of the candidate cache."""
+    h_core = make_h_reduce_fn(
+        knn_k=knn_k, nb_offs=nb_offs, resolution=resolution,
+        max_valid_dist2=max_valid_dist2, sdf_scale=sdf_scale,
+        min_grad_norm=min_grad_norm, max_grad_norm=max_grad_norm,
+        min_nn_count=min_nn_count, mlp_leaky=mlp_leaky, encode_vecs=encode_vecs,
+        layer_norm=layer_norm, info_scale=info_scale,
+    )
+    loop_kw = dict(
+        max_iteration=max_iteration, term_rad=term_thre_deg * math.pi / 180.0,
+        term_thre_m=term_thre_m, eps=eps, min_valid_ratio=min_valid_ratio,
+        stagnation_iter=stagnation_iter,
+    )
+
+    def body(map_state, mlp, points_imu, mask, rot0, pos0, rest0, P,
+             travel_dist, cur_ts, window):
+        def h_reduce(rot, pos):
+            return h_core(map_state, mlp, points_imu, mask, rot, pos,
+                          travel_dist, cur_ts, window)
+
+        return _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, **loop_kw)
 
     return body

@@ -26,9 +26,12 @@ ctypes' argument conversion, and the checks are those the kernels need.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _build
+from .scatter import segment_add
 
 # launches of each kernel (one per wrapper call on CUDA tensors)
 launches = {"gather_rows": 0, "gather_lanes": 0, "gather_cols": 0}
@@ -115,10 +118,37 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                    int(idx.dtype is torch.int64))
 
 
+class _RowsBackward(torch.autograd.Function):
+    """``gather_rows_nd`` of a table that needs a gradient: the kernel
+    forward, and a backward that sums each row's cotangents in a fixed
+    order (``ops/scatter.py:segment_add``). Autograd's own backward of
+    ``table[idx]`` accumulates with atomics on CUDA and in thread order on
+    the CPU, so a run would not repeat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        return gather_rows_nd(table.detach(), idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        shape = ctx.table_shape
+        zeros = grad.new_zeros((shape[0], math.prod(shape[1:])))
+        rows = segment_add(zeros, idx.reshape(-1).long(), grad.reshape(idx.numel(), -1))
+        return rows.reshape(shape), None
+
+
 def gather_rows_nd(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]`` for indices of any shape: [*idx.shape, C] through
-    ``gather_rows`` (the hash-mirror probes gather [N, K] buckets)."""
-    return gather_rows(table, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
+    """``table[idx]`` for indices of any shape: [*idx.shape, *row] through
+    ``gather_rows`` (the hash-mirror probes gather [N, K] buckets). Rows of
+    more than one dimension move flattened. Differentiable wrt ``table``,
+    with a backward of fixed summation order."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _RowsBackward.apply(table, idx)
+    flat = table.reshape(table.shape[0], -1)
+    return gather_rows(flat, idx.reshape(-1)).reshape(idx.shape + table.shape[1:])
 
 
 # gather_lanes: the lane sizes its kernel copies
@@ -138,6 +168,8 @@ class _LanesBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        # one addend a target: smallest_k picks distinct lanes in a row, so
+        # the scatter-add (atomics on CUDA) has no order to vary
         (sel,) = ctx.saved_tensors
         sel = sel.long()
         if len(ctx.src_shape) == 3:

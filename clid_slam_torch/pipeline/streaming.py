@@ -3,26 +3,33 @@ clid_slam_tpu/pipeline/streaming.py).
 
 The whole recurrent state (IESEKF, odometry bookkeeping, neural map, local
 label map, replay pool, decoder) lives on the device in ``StreamState``.
-One frame = IMU propagation + candidate-cached iterated update + map prep +
+One frame = IMU propagation + iterated update (candidate-cached, or
+re-querying the map each iteration with ``track_cached=False``) + the
+dynamic filter (``dynamic_filter_on``, tracked frames) + map prep +
 adaptive iteration count + mapping, with the host uploading the scan and
 the IMU window once. Tracked frames map with the fused kernel
 (``ops/map_loop.py``) or, where the config is ineligible for it, with the
-mapper's autograd loop; frame 0 runs the general multi-batch body. With
-``prune_map_on`` the map is pruned and rehashed every ``prune_freq_frame``
-frames, after the frame step.
+mapper's autograd loop; frame 0 runs the general multi-batch body. After
+the frame step, with ``ba_freq_frame > 0`` a sliding-window bundle
+adjustment refines the last ``ba_frame`` poses and the map's features, and
+with ``prune_map_on`` the map is pruned and rehashed every
+``prune_freq_frame`` frames. ``save_checkpoint``/``load_checkpoint`` write
+and read the whole state (the JAX package's file, plus the generator).
 
 Host reads inside a frame: the iterated update reads its exit flag once
 per iteration, frame 0 reads its iteration count to size the outer
 mapping loop, and a tracked frame on the autograd loop reads its step
 count once. Everything else stays on the device until ``sync()``.
 
-The tracking, prep and mapping stages run under ``torch.profiler``
-ranges (``frame.track``, ``frame.prep``, ``frame.map``) so that a profile
-of the loop splits the frame by stage (``chip_smoke.py --profile``).
+The tracking, filter, prep and mapping stages and the BA run under
+``torch.profiler`` ranges (``frame.track``, ``frame.filter``,
+``frame.prep``, ``frame.map``, ``ba``) so that a profile of the loop splits
+the frame by stage (``chip_smoke.py --profile``).
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -36,6 +43,8 @@ from ..device import resolve_device
 from ..mapping import mapper as mp
 from ..mapping import pool as pl
 from ..mapping import prep as prp
+from ..mapping.bundle_adjustment import make_ba_fn
+from ..mapping.dynamic_filter import make_dynamic_filter_fn
 from ..models import decoder as dec
 from ..models import local_map as lm
 from ..models import neural_map as nm
@@ -73,6 +82,18 @@ class StreamState:
     losses: torch.Tensor  # [T,2]
     track_iters: torch.Tensor  # [T] i32
 
+    def leaves(self) -> list:
+        """The state in the JAX package's leaf order (``tree_leaves`` of
+        its ``StreamState``); the key slot holds the generator."""
+        return [
+            self.rot, self.pos, self.rest, self.P, self.last_pose, self.odom_poses,
+            self.travel_dist, self.lose_track, self.consec_lose, self.stop_count,
+            self.stop_status, self.failed, *self.map_state.tensors(),
+            *self.local_map.tensors(), *self.pool.tensors(), *self.mlp.tensors(),
+            *self.color_mlp.tensors(), *self.sem_mlp.tensors(), self.key, self.losses,
+            self.track_iters,
+        ]
+
 
 def check_supported(cfg: Config) -> None:
     """The options the port runs so far; the others raise."""
@@ -80,12 +101,8 @@ def check_supported(cfg: Config) -> None:
         name for name, on in (
             ("color_on", cfg.color_on),
             ("semantic_on", cfg.semantic_on),
-            ("dynamic_filter_on", cfg.dynamic_filter_on),
-            ("ba_freq_frame>0", cfg.ba_freq_frame > 0),
             ("mlp_bf16", cfg.mlp_bf16),
             ("weighted_first=False", not cfg.weighted_first),
-            ("track_cached=False", not cfg.track_cached),
-            (f"feature_dim={cfg.feature_dim} (not a multiple of 4)", cfg.feature_dim % 4 != 0),
         ) if on
     ]
     if missing:
@@ -113,14 +130,20 @@ def _pose(rot, pos):
 def make_frame_step(cfg: Config, nb_offs, encode_vecs):
     """The four frame-step variants keyed by (track, filter_pool_now):
     step(state, frame_id, points, pmask, point_ts, imu_rows, imu_count,
-    crop_max_range, iters_base, mlp_lr_scale, allow_restart) -> state."""
+    crop_max_range, iters_base, mlp_lr_scale, allow_restart) -> (state,
+    insert_dropped, filtered); ``filtered`` is None or the [2] counts of
+    points the map trains on before and after the dynamic filter."""
     max_valid_dist2 = 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
     S = cfg.max_source_points
     window = cfg.diff_travel_dist_local
     n_cand = cfg.track_n_cand or max(16, cfg.query_nn_k * 2)
-    cached_update = iekf.make_cached_update_fn(
+    make_update = (
+        functools.partial(iekf.make_cached_update_fn, n_cand=n_cand)
+        if cfg.track_cached
+        else iekf.make_update_iterated_fn
+    )
+    update = make_update(
         knn_k=cfg.query_nn_k,
-        n_cand=n_cand,
         nb_offs=nb_offs,
         resolution=cfg.voxel_size_m,
         max_valid_dist2=max_valid_dist2,
@@ -198,6 +221,20 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
         )
         for fp in (False, True)
     }
+    dyn_filter = None
+    if cfg.dynamic_filter_on:
+        # without layer_norm, as the JAX frame step builds it (ROADMAP C4)
+        dyn_filter = make_dynamic_filter_fn(
+            knn_k=cfg.query_nn_k,
+            nb_offs=nb_offs,
+            resolution=cfg.voxel_size_m,
+            max_valid_dist2=max_valid_dist2,
+            sdf_scale=cfg.sdf_scale,
+            certainty_thre=cfg.dynamic_certainty_thre,
+            sdf_ratio_thre=cfg.dynamic_sdf_ratio_thre,
+            mlp_leaky=cfg.mlp_leaky_relu,
+            encode_vecs=encode_vecs,
+        )
 
     def make_step(track: bool, filter_pool_now: bool):
         prep_body = prep_bodies[filter_pool_now]
@@ -265,7 +302,7 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                     src_pts = deskew(src_pts, point_ts[src_idx], rel)
 
                 with record_function("frame.track"):
-                    rot, pos, rest, P, ok, n_iter = cached_update(
+                    rot, pos, rest, P, ok, n_iter = update(
                         state.map_state, state.mlp, src_pts, smask,
                         rot, pos, rest, P, travel_dist, frame_id, window,
                     )
@@ -295,6 +332,19 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                 pose = _pose(rot, pos)
                 odom_poses[frame_id] = pose
                 travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)]
+
+            # dynamic-object filter (slam.py:170-176: tracked frames only):
+            # drop measurements landing in confidently observed free space
+            filtered = None
+            if dyn_filter is not None and track:
+                with record_function("frame.filter"):
+                    world = points @ pose[:3, :3].T + pose[:3, 3]
+                    before = torch.sum(train_mask.to(torch.int32))
+                    train_mask = dyn_filter(
+                        state.map_state, state.mlp, world, train_mask,
+                        travel_dist, frame_id, window,
+                    )
+                    filtered = torch.stack([before, torch.sum(train_mask.to(torch.int32))])
 
             # map prep, gated by tracking validity (a lost or stopped frame
             # must not corrupt the map)
@@ -346,11 +396,52 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                 map_state=map_state, local_map=res.local_map, pool=res.pool,
                 mlp=mlp, losses=losses, track_iters=track_iters,
             )
-            return new_state, res.insert_dropped
+            return new_state, res.insert_dropped, filtered
 
         return step
 
     return {(tr, fp): make_step(tr, fp) for tr in (False, True) for fp in (False, True)}
+
+
+def make_ba_step(cfg: Config, nb_offs, encode_vecs):
+    """Sliding-window bundle adjustment as a device step: refine the last
+    ``ba_frame`` poses and the map's features, write the corrected poses
+    into the trajectory and re-express the replay pool's world coords. The
+    IESEKF state stays as it is (the reference's does too).
+    ``ba_step(state, frame_id) -> state``."""
+    w = cfg.ba_frame
+    ba_fn = make_ba_fn(
+        knn_k=cfg.query_nn_k,
+        nb_offs=nb_offs,
+        resolution=cfg.voxel_size_m,
+        max_valid_dist2=3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2,
+        sdf_scale=cfg.sdf_scale,
+        window_size=w,
+        ba_bs=cfg.ba_bs,
+        lr_pose=cfg.lr_pose,
+        lr_map=cfg.lr,
+        adam_eps=cfg.adam_eps,
+        mlp_leaky=cfg.mlp_leaky_relu,
+        encode_vecs=encode_vecs,
+    )
+
+    def ba_step(state: StreamState, frame_id: int) -> StreamState:
+        lo = max(frame_id - w + 1, 0)
+        start = min(lo, state.odom_poses.shape[0] - w)  # jax.lax.dynamic_slice's clamp
+        map_state, new_poses, _ = ba_fn(
+            state.map_state, state.mlp, state.pool, state.odom_poses[start : start + w], lo,
+            state.travel_dist, frame_id, cfg.diff_travel_dist_local, cfg.ba_iters,
+            generator=state.key,
+        )
+        odom = state.odom_poses.clone()
+        odom[start : start + w] = new_poses
+        pool = pl.retransform_coords(state.pool, state.odom_poses, odom)
+        return replace(
+            state, map_state=map_state, odom_poses=odom, pool=pool,
+            last_pose=odom[frame_id].clone(),
+        )
+
+    return ba_step
 
 
 class StreamingSlam:
@@ -372,15 +463,20 @@ class StreamingSlam:
             seed=cfg.seed,
         )
         self.steps = make_frame_step(cfg, self.nb_offs, self.encode_vecs)
+        self._ba_step = (
+            make_ba_step(cfg, self.nb_offs, self.encode_vecs) if cfg.ba_freq_frame > 0 else None
+        )
         self.T_imu_lidar = np.asarray(cfg.T_imu_lidar, np.float64)
         self.imu_max_rows = IMU_MAX_ROWS
         self._init_state()
         self.processed = 0
         # insert candidates dropped by the pre-probe compaction (all frames)
         self.insert_dropped = torch.zeros((), dtype=torch.int64, device=self.device)
-        # (frame_id, point count before, after) of every prune; the counts
-        # stay device scalars until sync()
+        # (frame_id, point count before, after) of every prune, and of every
+        # dynamic filter (points the map trains on); the counts stay device
+        # scalars until sync()
         self.prune_log = []
+        self.filter_log = []
 
     def _init_state(self):
         cfg, dev = self.cfg, self.device
@@ -514,12 +610,23 @@ class StreamingSlam:
         step = self.steps[(track, filter_now)]
         iters_base = cfg.iters * cfg.init_iter_ratio if frame_id == 0 else cfg.iters
         mlp_scale = 0.0 if frame_id >= cfg.freeze_after_frame else 1.0
-        self.state, dropped = step(
+        self.state, dropped, filtered = step(
             self.state, frame_id, scan_d[:, :3], scan_d[:, 3] > 0.5, scan_d[:, 4],
             imu_d, k, crop_max_range, iters_base, mlp_scale,
             frame_id > cfg.freeze_after_frame, draws,
         )
         self.insert_dropped = self.insert_dropped + dropped
+        if filtered is not None:
+            self.filter_log.append((frame_id, filtered[0], filtered[1]))
+
+        # sliding-window BA cadence (no host read)
+        if (
+            self._ba_step is not None
+            and frame_id >= cfg.ba_frame
+            and (frame_id + 1) % cfg.ba_freq_frame == 0
+        ):
+            with record_function("ba"):
+                self.state = self._ba_step(self.state, frame_id)
 
         # prune cadence (no host read)
         if cfg.prune_map_on and (frame_id + 1) % cfg.prune_freq_frame == 0:
@@ -538,6 +645,55 @@ class StreamingSlam:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def save_checkpoint(self, path: str):
+        """Write the whole recurrent state as one compressed npz in the JAX
+        package's format (``n_leaves``, ``processed``, ``leaf_i`` in its
+        leaf order), plus the generator's state (``gen_state``) and the
+        counters ``sync()`` reports, so that a resumed run continues
+        exactly where this one stopped."""
+        from ..convert import stream_state_to_numpy
+
+        self.block()
+        leaves = stream_state_to_numpy(self.state)
+        log = lambda entries: np.array(
+            [(f, int(b), int(a)) for f, b, a in entries], np.int64
+        ).reshape(-1, 3)
+        np.savez_compressed(
+            path,
+            n_leaves=len(leaves),
+            processed=self.processed,
+            gen_state=self.state.key.get_state().numpy(),
+            insert_dropped=int(self.insert_dropped),
+            prune_log=log(self.prune_log),
+            filter_log=log(self.filter_log),
+            **{f"leaf_{i}": v for i, v in enumerate(leaves)},
+        )
+
+    def load_checkpoint(self, path: str):
+        """Restore a ``save_checkpoint`` file of a system of the same
+        config, and continue with ``process_frame`` from the frame after
+        it. A file of the JAX package carries no generator state: the
+        generator is then seeded from its key leaf, so the draws differ
+        from the JAX run's."""
+        from ..convert import stream_state_from_numpy
+
+        with np.load(path) as z:
+            n = int(z["n_leaves"])
+            want = len(self.state.leaves())
+            if n != want:
+                raise ValueError(
+                    f"checkpoint has {n} state leaves, this config builds {want} — config mismatch"
+                )
+            state = stream_state_from_numpy([z[f"leaf_{i}"] for i in range(n)], self.device)
+            if "gen_state" in z.files:
+                state.key.set_state(torch.from_numpy(z["gen_state"]))
+            dropped = int(z["insert_dropped"]) if "insert_dropped" in z.files else 0
+            log = lambda key: [tuple(int(x) for x in r) for r in z[key]] if key in z.files else []
+            self.prune_log, self.filter_log = log("prune_log"), log("filter_log")
+            self.processed = int(z["processed"])
+        self.state = state
+        self.insert_dropped = torch.tensor(dropped, dtype=torch.int64, device=self.device)
+
     def sync(self) -> dict:
         """Materialize results on the host."""
         st = self.state
@@ -552,4 +708,5 @@ class StreamingSlam:
             "neural_points": self.neural_point_count(),
             "insert_dropped": int(self.insert_dropped),
             "prunes": [(f, int(b), int(a)) for f, b, a in self.prune_log],
+            "filtered": [(f, int(b), int(a)) for f, b, a in self.filter_log],
         }

@@ -492,6 +492,82 @@ def test_gather_lanes_kernel_passes_the_gradient():
     assert torch.equal(a.grad, b.grad)
 
 
+def _query_gradients(state, mlp, points, nb, travel):
+    """The gradients of query_feature's decoded SDF wrt the points and the
+    features (as the dynamic filter and BA take them)."""
+    from dataclasses import replace
+
+    from clid_slam_torch.models import decoder as dec
+    from clid_slam_torch.models import neural_map as nm
+
+    p = points.clone().requires_grad_(True)
+    f = state.geo_feats.clone().requires_grad_(True)
+    q = nm.query_feature(replace(state, geo_feats=f), p, nb, 0.3, 2.43, 6, travel, 0, 1e9, True)
+    pred = dec.sdf(mlp, q.feature, 0.055)
+    return torch.autograd.grad(torch.sum(pred + pred**2), (p, f))
+
+
+@pytest.mark.gpu
+def test_query_feature_gradients_on_the_card(monkeypatch):
+    """Through the gather kernels (4 gather_lanes, 2 gather_rows launches)
+    the gradients wrt the points (the lane gathers' backward) and wrt the
+    features (gather_rows_nd's sorted backward) equal, bit for bit, those
+    of the plain versions on the card and of a second kernel run, and the
+    CPU's within 1e-6 of their largest magnitude."""
+    from clid_slam_torch.models import decoder as dec
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops.voxel import neighbor_offsets
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    u = rng.normal(size=(6000, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    travel = torch.zeros(8, device=dev)
+    state = nm.init_map(1 << 13, 1 << 15, 8, device=dev)
+    state, _ = nm.insert_points(state, torch.from_numpy((u * 3.0).astype(np.float32)).to(dev),
+                                torch.ones(6000, dtype=torch.bool, device=dev), 0.3, travel, 0, 1e9,
+                                downsample=False)
+    count = int(state.count)
+    feats = state.geo_feats.clone()
+    feats[:count] = torch.from_numpy(rng.normal(0, 0.1, (count, 8)).astype(np.float32)).to(dev)
+    state = state._replace(geo_feats=feats)
+    mlp = dec.init_mlp(torch.Generator(device=dev).manual_seed(1), 11, 64, 1)
+    v = rng.normal(size=(4000, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    pts = torch.from_numpy((v * rng.uniform(2.7, 3.3, (4000, 1))).astype(np.float32)).to(dev)
+    nb = torch.as_tensor(neighbor_offsets(2, 0.5), device=dev)
+
+    before = dict(gt.launches)
+    kernel = _query_gradients(state, mlp, pts, nb, travel)
+    assert gt.launches["gather_lanes"] == before["gather_lanes"] + 4
+    assert gt.launches["gather_rows"] == before["gather_rows"] + 2
+    again = _query_gradients(state, mlp, pts, nb, travel)
+
+    def plain_lanes(src, sel):
+        if src.requires_grad and torch.is_grad_enabled():
+            return gt._LanesBackward.apply(src, sel)
+        return gt.gather_lanes_reference(src, sel)
+
+    with monkeypatch.context() as m:
+        m.setattr(gt, "gather_rows", gt.gather_rows_reference)
+        m.setattr(gt, "gather_lanes", plain_lanes)
+        m.setattr(nm, "gather_lanes", plain_lanes)
+        before = dict(gt.launches)
+        plain = _query_gradients(state, mlp, pts, nb, travel)
+        assert gt.launches == before
+    to_cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
+    cpu_state = nm.NeuralMapState(*[to_cpu(x) for x in state.tensors()])
+    cpu_mlp = dec.MLPParams([w.cpu() for w in mlp.weights], [b.cpu() for b in mlp.biases],
+                            mlp.w_out.cpu(), mlp.b_out.cpu())
+    cpu = _query_gradients(cpu_state, cpu_mlp, pts.cpu(), nb.cpu(), travel.cpu())
+    for k, a, p, c in zip(kernel, again, plain, cpu):
+        assert torch.equal(k, a) and torch.equal(k, p)
+        assert float((k.cpu() - c).abs().max()) <= 1e-6 * max(1.0, float(c.abs().max()))
+        assert float(c.abs().max()) > 0
+    assert int((kernel[1].abs().sum(1) > 0).sum()) > 100  # many feature rows get a gradient
+
+
 @pytest.mark.gpu
 def test_gather_lanes_rejects_what_the_kernel_cannot_take():
     from clid_slam_torch.ops import gather as gt

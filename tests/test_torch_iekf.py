@@ -1,7 +1,7 @@
-"""IESEKF parity: device IMU propagation (atol 1e-5) and the
-candidate-cached iterated update on a converted JAX map (poses within
-2e-3, as tests/test_streaming.py holds the cached update to the re-query
-update)."""
+"""IESEKF parity: device IMU propagation (atol 1e-5), and the
+candidate-cached and the re-querying iterated updates on a converted JAX
+map (poses within 2e-3, as tests/test_streaming.py holds the cached update
+to the re-query update)."""
 
 import numpy as np
 import jax
@@ -94,4 +94,57 @@ def test_cached_update_matches_jax():
     np.testing.assert_allclose(n(tr[1]), np.asarray(jr[1]), atol=2e-3)  # position
     np.testing.assert_allclose(n(tr[0]), np.asarray(jr[0]), atol=2e-3)  # rotation
     assert bool(tr[4]) and bool(jr[4])
+    assert abs(int(tr[5]) - int(jr[5])) <= 3
+
+
+def _update_case():
+    """tests/test_streaming.py:55's scene and start: the sphere's map, a
+    scan of it from inside and a slightly perturbed pose."""
+    rng = np.random.default_rng(0)
+    res = 0.3
+    js, jmlp, td = _scene(rng, res)
+    kw = dict(
+        knn_k=6, nb_offs=neighbor_offsets(2, 0.5), resolution=res,
+        max_valid_dist2=3.0 * (3 * res) ** 2, sdf_scale=0.055, min_grad_norm=0.0,
+        max_grad_norm=100.0, min_nn_count=1, max_iteration=20, term_thre_deg=0.01,
+        term_thre_m=0.001,
+    )
+    u = rng.standard_normal((512, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    c, s = np.cos(0.01), np.sin(0.01)
+    rest0 = np.zeros(12, np.float32)
+    rest0[9:12] = [0, 0, -9.81]
+    args = ((u * 3.0).astype(np.float32), np.ones(512, bool),
+            np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32),
+            np.array([0.02, -0.01, 0.005], np.float32), rest0,
+            (np.eye(18) * 1e-2).astype(np.float32))
+    return js, jmlp, td, kw, args
+
+
+def test_requery_update_matches_cached_update():
+    """tests/test_streaming.py:55 on the port: the update that re-queries
+    the map each iteration and the candidate-cached one reach one pose."""
+    js, jmlp, td, kw, args = _update_case()
+    ts = neural_map_from_numpy([np.asarray(x) for x in js], "cpu")
+    tmlp = mlp_from_numpy(jax.tree.map(np.asarray, jmlp), "cpu")
+    targs = (ts, tmlp, *[t(a) for a in args], t(td), 0, 1e9)
+    r1 = tie.make_update_iterated_fn(**kw)(*targs)
+    r2 = tie.make_cached_update_fn(n_cand=16, **kw)(*targs)
+    np.testing.assert_allclose(n(r1[1]), n(r2[1]), atol=2e-3)  # position
+    np.testing.assert_allclose(n(r1[0]), n(r2[0]), atol=2e-3)  # rotation
+    assert bool(r1[4]) and bool(r2[4])
+
+
+def test_requery_update_matches_jax():
+    js, jmlp, td, kw, args = _update_case()
+    jr = jie.make_update_iterated_fn(**kw)(
+        js, jmlp, *[jnp.asarray(a) for a in args], td, 0, 1e9,
+    )
+    ts = neural_map_from_numpy([np.asarray(x) for x in js], "cpu")
+    tmlp = mlp_from_numpy(jax.tree.map(np.asarray, jmlp), "cpu")
+    tr = tie.make_update_iterated_fn(**kw)(ts, tmlp, *[t(a) for a in args], t(td), 0, 1e9)
+    np.testing.assert_allclose(n(tr[1]), np.asarray(jr[1]), atol=2e-3)  # position
+    np.testing.assert_allclose(n(tr[0]), np.asarray(jr[0]), atol=2e-3)  # rotation
+    np.testing.assert_allclose(n(tr[2]), np.asarray(jr[2]), atol=2e-3)  # vel, biases, gravity
+    assert bool(tr[4]) == bool(jr[4])
     assert abs(int(tr[5]) - int(jr[5])) <= 3

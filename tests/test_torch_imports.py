@@ -1,6 +1,7 @@
 """The port imports neither JAX nor clid_slam_tpu, and its entry points run
 on the card unless the caller asks for the CPU."""
 
+import glob
 import os
 import re
 import subprocess
@@ -70,12 +71,10 @@ def test_entry_points_default_to_cuda():
 @pytest.mark.parametrize(
     "option, value, named",
     [
-        ("dynamic_filter_on", True, "dynamic_filter_on"),
         ("color_on", True, "color_on"),
         ("semantic_on", True, "semantic_on"),
         ("mlp_bf16", True, "mlp_bf16"),
         ("weighted_first", False, "weighted_first=False"),
-        ("ba_freq_frame", 5, "ba_freq_frame>0"),
     ],
     ids=lambda v: v if isinstance(v, str) else None,
 )
@@ -91,12 +90,14 @@ def test_unported_options_raise(option, value, named):
 @pytest.mark.parametrize(
     "overrides",
     [dict(prune_map_on=True), dict(mlp_leaky_relu=True), dict(map_dup_independent=False),
-     dict(main_loss_type="sdf_l2")],
+     dict(main_loss_type="sdf_l2"), dict(dynamic_filter_on=True), dict(ba_freq_frame=5),
+     dict(track_cached=False), dict(feature_dim=6)],
     ids=lambda d: next(iter(d)),
 )
 def test_ported_options_construct(overrides):
-    """The prune cadence and the configs the fused kernel does not take
-    (they run the mapper's autograd loop) build a StreamingSlam."""
+    """The prune cadence, the dynamic filter, BA, the re-querying tracker
+    and the configs the fused kernel does not take (they run the mapper's
+    autograd loop) build a StreamingSlam."""
     from clid_slam_torch.pipeline.streaming import StreamingSlam
     from torch_parity import port_config, tiny_config
 
@@ -110,3 +111,17 @@ def test_large_bench_config_is_supported():
     cfg = bc.build_config(large=True)
     assert cfg.prune_map_on
     check_supported(cfg)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml"))),
+    ids=os.path.basename,
+)
+def test_repo_configs_are_supported(path):
+    """Every config of the repo, run_quad.yaml's dynamic filter included,
+    passes the port's check (checked without building a system at these
+    configs' map sizes)."""
+    from clid_slam_torch.config import Config
+    from clid_slam_torch.pipeline.streaming import check_supported
+
+    check_supported(Config.load(path))

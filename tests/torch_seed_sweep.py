@@ -1,14 +1,17 @@
 """ATE of the JAX and the PyTorch StreamingSlam over decoder/RNG seeds.
 
-Three scenarios:
+Four scenarios:
 - ``tiny`` (default): the 12-frame tiny sequence of tests/test_streaming.py;
 - ``large``: the bench's large configuration and trajectory (50 m world,
   32 m circle, hold and ramp, prune/rehash every 50 frames), 200 frames. On
   the CPU it is cut to 256x24 beams, bs 4096 and small tables; ``--full``
   runs it uncut (1024x32 beams, bench tables), which is for the card;
 - ``small``: the bench's small configuration and 25-frame sequence, uncut
-  (chip_smoke.py's ``stream`` phase at other seeds), the port only and for
-  the card.
+  (chip_smoke.py's ``stream`` phase at other seeds): the port on the card,
+  the JAX package on a CPU (about a minute a seed);
+- ``dynba``: the small configuration with the dynamic filter and a 20-frame
+  sliding-window BA every 10 frames from frame 20, 40 frames, uncut
+  (chip_smoke.py's ``stream_dynba`` phase), on the same devices.
 
 Both loops are chaotic (any rounding-level change moves the tiny ATE within
 roughly 0.05-0.2 m, and the large one's slow vertical drift by more), so the
@@ -21,6 +24,8 @@ test; run it by hand:
         --device cuda --seeds 42,1-3        # on the card; needs no JAX
     python tests/torch_seed_sweep.py --scenario small --side torch \
         --device cuda --seeds 42,0-9 --k1 plain
+    JAX_PLATFORMS=cpu python tests/torch_seed_sweep.py --scenario dynba \
+        --side jax --seeds 42
     JAX_PLATFORMS=cpu python tests/torch_seed_sweep.py --scenario large \
         --side torch_jax_draws --seeds 1-42
 
@@ -28,6 +33,10 @@ test; run it by hand:
 package would draw for that seed (its decoder init and its PRNG chain, frame
 by frame), which separates the port's code from its random stream: seed by
 seed its ATE then follows the JAX run's.
+
+``--set name=value`` (repeatable) sets a config field on both sides, for
+example ``--set track_cached=False`` for the tracker that re-queries the
+map at every iteration.
 
 ``--k1 plain`` maps the tracked frames with the fused loop's plain PyTorch
 version (``ops/map_loop.py:map_loop_reference``) on the port's device in
@@ -38,6 +47,7 @@ Prints one line per seed and side, then one JSON summary line.
 """
 
 import argparse
+import ast
 import json
 import os
 import sys
@@ -73,19 +83,24 @@ def _scenario(name, side, full):
         from clid_slam_tpu.pipeline.synthetic import generate_sequence, large_world
     else:
         from clid_slam_torch.pipeline.synthetic import generate_sequence, large_world
-    if name == "small":
-        if side != "torch":
-            raise SystemExit("--scenario small runs the port alone (--side torch)")
-        from clid_slam_torch.pipeline import bench_cases as bc
-
-        seq = bc.make_sequence(False, 25)
+    if name in ("small", "dynba"):
+        if side == "torch_jax_draws":
+            raise SystemExit(f"--scenario {name} runs --side jax or torch")
+        if side == "jax":
+            import bench as cases
+        else:
+            from clid_slam_torch.pipeline import bench_cases as cases
+        seq = cases.make_sequence(False, 25 if name == "small" else 40)
 
         def make_small(seed):
-            cfg = bc.build_config(large=False)
+            cfg = cases.build_config(large=False)
             cfg.seed = seed
+            if name == "dynba":
+                cfg.dynamic_filter_on, cfg.ba_frame, cfg.ba_freq_frame = True, 20, 10
             return cfg
 
-        return make_small, seq, bc.initial_velocity(seq, False), bc.TOTAL_FRAMES
+        vel = cases._vel0(seq, "small") if side == "jax" else cases.initial_velocity(seq, False)
+        return make_small, seq, vel, cases.TOTAL_FRAMES
     if name == "tiny":
         from torch_parity import port_config, tiny_config  # imports JAX's Config
 
@@ -172,12 +187,15 @@ def main():
     ap.add_argument("--seeds", default="0-7", help="e.g. 0-7 or 42,1-3")
     ap.add_argument("--side", choices=("both", "jax", "torch", "torch_jax_draws"),
                     default="both")
-    ap.add_argument("--scenario", choices=("tiny", "large", "small"), default="tiny")
+    ap.add_argument("--scenario", choices=("tiny", "large", "small", "dynba"), default="tiny")
     ap.add_argument("--full", action="store_true", help="large scenario uncut (for the card)")
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--k1", choices=("kernel", "plain"), default="kernel",
                     help="the port's fused mapping loop: its kernel or its plain version")
+    ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
+                    help="a config field for every run (a Python literal), repeatable")
     args = ap.parse_args()
+    overrides = {k: ast.literal_eval(v) for k, v in (a.split("=", 1) for a in args.set)}
 
     import torch
 
@@ -192,7 +210,14 @@ def main():
     sides = ("jax", "torch") if args.side == "both" else (args.side,)
     ate = {s: [] for s in sides}
     for side in sides:
-        make, seq, vel, total = _scenario(args.scenario, side, args.full)
+        make_cfg, seq, vel, total = _scenario(args.scenario, side, args.full)
+
+        def make(seed, make_cfg=make_cfg):
+            cfg = make_cfg(seed=seed)
+            for k, v in overrides.items():
+                setattr(cfg, k, v)
+            return cfg
+
         if side == "jax":
             from clid_slam_tpu.pipeline.streaming import StreamingSlam
             kw = {}
@@ -221,7 +246,8 @@ def main():
             "ate_min_m": float(np.min(v)), "ate_max_m": float(np.max(v)),
             "over_0.2m": int(np.sum(np.asarray(v) >= 0.2))}
         for s, v in ate.items()
-    } | {"scenario": args.scenario, "full": args.full, "device": args.device, "k1": args.k1,
+    } | {"scenario": args.scenario, "set": overrides, "full": args.full, "device": args.device,
+         "k1": args.k1,
          "torch_threads": torch.get_num_threads()}))
 
 
