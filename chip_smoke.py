@@ -23,7 +23,12 @@ Phases, each printing one JSON line:
           floats) and the kNN selection (K 6 of 81 lanes for 16384 points,
           16 of 81 for 8192, of f32, int64, bool and 16-byte lanes, the
           selectors the first K columns of smallest_k's sort, rows 81
-          apart, as the path hands them over), each
+          apart, as the path hands them over), and the dynamic filter's and
+          BA's (BA's [20, 16] window-pose gather by 16384 clamped window
+          rows, the filter's mirror probe and K 6 selection over a whole
+          scan of 32768 points, query_feature's feature rows of a 2^18-row
+          map with its sentinel row at BA's 16384 and the filter's 32768
+          points), each
           equal to its plain version bit for bit, with kernel, plain and
           library-call ms (and table[idx] at the mirror shapes) and the
           card's bound; then the host time of one call of each gather
@@ -54,6 +59,12 @@ Phases, each printing one JSON line:
           points the map trains on that the filter dropped, frame by frame;
           the launch counts gain the filter's (4 gather_lanes a tracked
           frame) and the BA's (4 gather_lanes an iteration);
+  gradient_check   on the map that run ends with, the gradients the filter
+          and BA take through the gather kernels at their full-width shapes
+          (query_feature's decoded SDF wrt the points and the features at
+          the last scan's 32768 points and at 16384 pool samples; BA's
+          window-pose gather): through the kernels twice and through their
+          plain versions on the card, all equal bit for bit;
   checkpoint_resume  the same configuration for frames 0-24 in a fresh
           system, saved with save_checkpoint, loaded into another fresh
           system and continued over frames 25-39: its trajectory, losses,
@@ -71,6 +82,7 @@ or clid_slam_tpu.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -183,25 +195,6 @@ def make_system(large, n_frames, device, seq=None, **overrides):
     return cfg, seq, system
 
 
-def time_ba_calls(system):
-    """Wrap the system's BA step in CUDA events; returns the list that each
-    call appends (frame_id, start, end) to."""
-    import torch
-
-    calls, inner = [], system._ba_step
-
-    def timed(state, frame_id):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = inner(state, frame_id)
-        end.record()
-        calls.append((frame_id, start, end))
-        return out
-
-    system._ba_step = timed
-    return calls
-
-
 def expected_launches(cfg, n_frames, track_iters, ba_frames):
     """The least gather_rows and gather_lanes launches a run makes: per
     tracked frame the mapper's slab and mirror gathers and the tracker's,
@@ -233,7 +226,6 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, ate_gate=0.
     from clid_slam_torch.utils import metrics
 
     cfg, seq, system = make_system(large, n_frames, device, **overrides)
-    ba_calls = time_ba_calls(system) if system._ba_step is not None else []
     torch.cuda.reset_peak_memory_stats()
     frame_ms = []
     ml.launches = 0  # count only this path's launches
@@ -257,7 +249,7 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, ate_gate=0.
     m = metrics.absolute_error(est, seq.poses[:n_frames], align=False)
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
     last_err = est[-1, :3, 3] - seq.poses[n_frames - 1, :3, 3]
-    ba_frames = [f for f, _, _ in ba_calls]
+    ba_frames = out["ba_frames"]
     tracked, want_rows, want_lanes = expected_launches(cfg, n_frames, out["track_iters"], ba_frames)
     res = {
         "phase": phase, "frames": n_frames, "warmup": warmup,
@@ -278,10 +270,9 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, ate_gate=0.
         res["filter_dropped_share"] = [
             {"frame": f, "train_points": b, "dropped": b - a, "share": (b - a) / max(b, 1)}
             for f, b, a in out["filtered"]]
-    if ba_calls:
+    if ba_frames:
         res["ba"] = {"frames": ba_frames, "iters": cfg.ba_iters, "bs": cfg.ba_bs,
-                     "window": cfg.ba_frame,
-                     "ms_per_call": [s.elapsed_time(e) for _, s, e in ba_calls]}
+                     "window": cfg.ba_frame, "ms_per_call": out["ba_ms"]}
     emit(res)
     if out["failed"]:
         raise AssertionError("tracking failed")
@@ -314,11 +305,11 @@ def stream_phase(phase, large, n_frames, warmup, device, fused=True, ate_gate=0.
     return res, system
 
 
-def checkpoint_resume(reference, n_frames, split, device, **overrides):
-    """The configuration of ``reference`` (a finished run of ``n_frames``)
-    for frames 0..split-1 in a fresh system, saved, loaded into another
-    fresh system and continued to the end: every output and state tensor
-    must equal the reference run's bit for bit."""
+def checkpoint_resume(reference, seq, split, device, **overrides):
+    """The configuration of ``reference`` (a finished run over the small
+    sequence ``seq``) for frames 0..split-1 in a fresh system, saved, loaded
+    into another fresh system and continued to the end: every output and
+    state tensor must equal the reference run's bit for bit."""
     import tempfile
 
     import torch
@@ -326,7 +317,8 @@ def checkpoint_resume(reference, n_frames, split, device, **overrides):
     from clid_slam_torch.ops import gather as gt
     from clid_slam_torch.ops import map_loop as ml
 
-    cfg, seq, first = make_system(False, n_frames, device, **overrides)
+    n_frames = len(seq.scans)
+    cfg, _, first = make_system(False, n_frames, device, seq=seq, **overrides)
     ml.launches = 0
     gt.reset_launches()
     for i in range(split):
@@ -348,8 +340,8 @@ def checkpoint_resume(reference, n_frames, split, device, **overrides):
     got, want = resumed.sync(), reference.sync()
     differ = [k for k in ("odom_poses", "losses", "track_iters", "travel_dist")
               if not np.array_equal(got[k], want[k])]
-    differ += [k for k in ("neural_points", "insert_dropped", "prunes", "filtered", "failed")
-               if got[k] != want[k]]
+    differ += [k for k in ("neural_points", "insert_dropped", "prunes", "filtered", "ba_frames",
+                           "failed") if got[k] != want[k]]
     leaves = list(zip(resumed.state.leaves(), reference.state.leaves()))
     differ += [f"leaf {i}" for i, (a, b) in enumerate(leaves) if not (
         torch.equal(a.get_state(), b.get_state()) if isinstance(a, torch.Generator)
@@ -362,6 +354,112 @@ def checkpoint_resume(reference, n_frames, split, device, **overrides):
     emit(res)
     if differ:
         raise AssertionError(f"the resumed run differs from the uninterrupted one: {differ}")
+    return res
+
+
+@contextlib.contextmanager
+def plain_gathers():
+    """The gather wrappers swapped for their plain PyTorch versions, which
+    then run on the card too, to hold a computation through the kernels
+    against the same computation without them."""
+    import torch
+
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops import gather as gt
+
+    def lanes(src, sel):
+        if src.requires_grad and torch.is_grad_enabled():
+            return gt._LanesBackward.apply(src, sel)  # its forward calls the swapped wrapper
+        return gt.gather_lanes_reference(src, sel)
+
+    saved = gt.gather_rows, gt.gather_lanes, nm.gather_lanes
+    gt.gather_rows, gt.gather_lanes, nm.gather_lanes = gt.gather_rows_reference, lanes, lanes
+    try:
+        yield
+    finally:
+        gt.gather_rows, gt.gather_lanes, nm.gather_lanes = saved
+
+
+def gradient_check(system, seq, n_frames, device):
+    """The gradients that the dynamic filter and BA take through the gather
+    kernels, at their full-width shapes on the map that ``system`` (a
+    finished stream_dynba run) ends with: ``query_feature``'s decoded SDF
+    wrt the points and the map's features at the filter's points (the last
+    scan in the world frame) and at BA's (``ba_bs`` pool samples), and BA's
+    window-pose gather (``gather_rows_nd``'s sorted backward) at its
+    [window, 4, 4] poses by ``ba_bs`` window rows. Each through the kernels
+    twice and through their plain versions on the card once: all three
+    equal bit for bit."""
+    from dataclasses import replace
+
+    import torch
+
+    from clid_slam_torch.mapping.pool import split_rows
+    from clid_slam_torch.models import decoder as dec
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops import gather as gt
+
+    cfg, st = system.cfg, system.state
+    cur, w = n_frames - 1, cfg.ba_frame
+    offs = torch.as_tensor(system.nb_offs, device=device)
+    dist2 = 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
+    pose = st.odom_poses[cur]
+    scan = torch.from_numpy(np.asarray(seq.scans[cur][:, :3], np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    draw = torch.randint(0, int(st.pool.size), (cfg.ba_bs,), generator=gen, device=device)
+    samples, _, _, ts, _, _ = split_rows(st.pool.data[draw])
+    w_idx = torch.clamp(ts - (cur - w + 1), 0, w - 1).long()
+    poses = st.odom_poses[cur - w + 1 : cur + 1]
+    cot = torch.randn((cfg.ba_bs, 4, 4), generator=gen, device=device)
+
+    def query_grads(points):
+        p = points.clone().requires_grad_(True)
+        f = st.map_state.geo_feats.clone().requires_grad_(True)
+        q = nm.query_feature(replace(st.map_state, geo_feats=f), p, offs, cfg.voxel_size_m,
+                             dist2, cfg.query_nn_k, st.travel_dist, cur,
+                             cfg.diff_travel_dist_local, True, encode_vecs=system.encode_vecs)
+        pred = dec.sdf(st.mlp, q.feature, cfg.sdf_scale, leaky=cfg.mlp_leaky_relu)
+        return torch.autograd.grad(torch.sum(pred + pred**2), (p, f))
+
+    def pose_grad():
+        t = poses.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.sum(gt.gather_rows_nd(t, w_idx) * cot), t)
+
+    cases = (
+        ("filter", ("points", "features"), lambda: query_grads(scan @ pose[:3, :3].T + pose[:3, 3]),
+         {"gather_rows": 2, "gather_lanes": 4}),
+        ("ba", ("points", "features"), lambda: query_grads(samples),
+         {"gather_rows": 2, "gather_lanes": 4}),
+        ("ba_pose_gather", ("poses",), pose_grad, {"gather_rows": 1, "gather_lanes": 0}),
+    )
+    res = {"phase": "gradient_check", "map_points": int(st.map_state.count), "cases": []}
+    wrong = []
+    for name, wrt, grads, want in cases:
+        gt.reset_launches()
+        kernel = grads()
+        launches = {k: gt.launches[k] for k in want}
+        again = grads()
+        with plain_gathers():
+            plain = grads()
+        if gt.launches["gather_rows"] + gt.launches["gather_lanes"] != sum(want.values()) * 2:
+            wrong.append(f"{name}: launches {dict(gt.launches)}")
+        if launches != want:
+            wrong.append(f"{name}: launched {launches}, expected {want}")
+        for label, k, a, p in zip(wrt, kernel, again, plain):
+            exact = torch.equal(k, a) and torch.equal(k, p)
+            rows = int((k.reshape(k.shape[0], -1).abs().sum(1) > 0).sum())
+            res["cases"].append({"case": name, "wrt": label, "shape": list(k.shape),
+                                 "rows_with_gradient": rows, "max_abs": float(k.abs().max()),
+                                 "max_abs_err": float((k - p).abs().max()), "exact": exact,
+                                 "launches": launches})
+            if not exact:
+                wrong.append(f"{name} wrt {label}: kernels and plain versions differ")
+            if rows == 0:
+                wrong.append(f"{name} wrt {label}: no gradient")
+    res["tolerance"] = "exact: torch.equal, kernels twice and plain versions on the card"
+    emit(res)
+    if wrong:
+        raise AssertionError(f"gradient_check: {wrong}")
     return res
 
 
@@ -582,9 +680,8 @@ def ptxas_summary(report):
 
 def gather_phase(device):
     """The probe entry point's six variants and the main path's shapes (the
-    hash mirrors, the mapper's work slab and the kNN selection), and the
-    host time of one call
-    of each wrapper. Returns the rows and the probe run's launch counts."""
+    hash mirrors, the mapper's work slab, the kNN selection, the filter's
+    and BA's), and the host time of one call of each wrapper. Returns the rows and the probe run's launch counts."""
     from clid_slam_torch.ops import gather as gt
     from clid_slam_torch.tools import probe_gather as pg
 
@@ -644,6 +741,7 @@ def main():
     sys.path.insert(0, REPO)
     from clid_slam_torch import set_full_precision
     from clid_slam_torch.ops import _build
+    from clid_slam_torch.pipeline import bench_cases
     from clid_slam_torch.tools.time_map_loop import nvidia_smi_line
 
     set_full_precision()
@@ -675,9 +773,11 @@ def main():
     fallback = stream_phase("stream_fallback", False, 12, 10, device, fused=False,
                             mlp_leaky_relu=True)[0]
     dynba_kw = dict(dynamic_filter_on=True, ba_frame=20, ba_freq_frame=10)
+    dynba_seq = bench_cases.make_sequence(False, 40)
     dynba, dynba_system = stream_phase("stream_dynba", False, 40, 10, device, ate_gate=0.3,
-                                       **dynba_kw)
-    resumed = checkpoint_resume(dynba_system, 40, 25, device, **dynba_kw)
+                                       seq=dynba_seq, **dynba_kw)
+    gradient_check(dynba_system, dynba_seq, 40, device)
+    resumed = checkpoint_resume(dynba_system, dynba_seq, 25, device, **dynba_kw)
     del dynba_system
     requery = stream_phase("stream_requery", False, 12, 10, device, track_cached=False)[0]
     if args.profile:
@@ -707,12 +807,13 @@ def main():
         gather_kernel_entry(
             "gather_rows", gather_table, "mapper f0", large["gather_rows_launches"],
             dict(by_path("gather_rows_launches"), probe=probe_launches["gather_rows"]),
-            other_variants=["mirror mapper probe"],
+            other_variants=["mirror mapper probe", "BA pose gather", "mirror filter probe",
+                            "query feats BA", "query feats filter"],
         ),
         gather_kernel_entry(
             "gather_lanes", gather_table, "select mapper d2s", large["gather_lanes_launches"],
             dict(by_path("gather_lanes_launches"), probe=probe_launches["gather_lanes"]),
-            other_variants=["K4 gather_b"] + [f"select {w} {s}" for w in ("mapper", "tracker")
+            other_variants=["K4 gather_b"] + [f"select {w} {s}" for w in ("mapper", "tracker", "filter")
                                                for s in ("d2s", "h", "pvalid", "mir")][1:],
         ),
         gather_kernel_entry("gather_cols", gather_table, "K7 make_c",

@@ -175,6 +175,16 @@ def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, *, max_iteration, ter
     return rot, pos, rest, P_new, ok, torch.tensor(i, dtype=torch.int32, device=dev)
 
 
+def _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,
+             stagnation_iter) -> dict:
+    """``_iterated_update``'s exit rules from an update factory's arguments."""
+    return dict(
+        max_iteration=max_iteration, term_rad=term_thre_deg * math.pi / 180.0,
+        term_thre_m=term_thre_m, eps=eps, min_valid_ratio=min_valid_ratio,
+        stagnation_iter=stagnation_iter,
+    )
+
+
 def make_cached_update_fn(
     *,
     knn_k: int,
@@ -202,11 +212,8 @@ def make_cached_update_fn(
     iteration. Returns body(map_state, mlp, points_imu[S,3], mask[S], rot0,
     pos0, rest0[12], P, travel_dist, cur_ts, window) -> (rot, pos, rest,
     P_new, ok, n_iter)."""
-    loop_kw = dict(
-        max_iteration=max_iteration, term_rad=term_thre_deg * math.pi / 180.0,
-        term_thre_m=term_thre_m, eps=eps, min_valid_ratio=min_valid_ratio,
-        stagnation_iter=stagnation_iter,
-    )
+    loop_kw = _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,
+                       stagnation_iter)
     offs_t = torch.as_tensor(nb_offs)
 
     def build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts, window):
@@ -351,11 +358,8 @@ def make_update_iterated_fn(
         min_nn_count=min_nn_count, mlp_leaky=mlp_leaky, encode_vecs=encode_vecs,
         layer_norm=layer_norm, info_scale=info_scale,
     )
-    loop_kw = dict(
-        max_iteration=max_iteration, term_rad=term_thre_deg * math.pi / 180.0,
-        term_thre_m=term_thre_m, eps=eps, min_valid_ratio=min_valid_ratio,
-        stagnation_iter=stagnation_iter,
-    )
+    loop_kw = _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,
+                       stagnation_iter)
 
     def body(map_state, mlp, points_imu, mask, rot0, pos0, rest0, P,
              travel_dist, cur_ts, window):

@@ -123,7 +123,11 @@ class _RowsBackward(torch.autograd.Function):
     forward, and a backward that sums each row's cotangents in a fixed
     order (``ops/scatter.py:segment_add``). Autograd's own backward of
     ``table[idx]`` accumulates with atomics on CUDA and in thread order on
-    the CPU, so a run would not repeat bit for bit."""
+    the CPU, so a run would not repeat bit for bit. It sorts the indices on
+    every backward, since the filter's and BA's change from call to call;
+    the mapper's slab gather (``mapping/mapper.py:_SlabGatherSorted``) keeps
+    its own, whose sort is made once a batch and reused by every inner
+    step."""
 
     @staticmethod
     def forward(ctx, table, idx):

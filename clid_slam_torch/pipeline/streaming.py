@@ -477,6 +477,9 @@ class StreamingSlam:
         # scalars until sync()
         self.prune_log = []
         self.filter_log = []
+        # (frame_id, start, end) of every BA call: CUDA events around it on
+        # the card (read in sync()), None on the CPU
+        self.ba_log = []
 
     def _init_state(self):
         cfg, dev = self.cfg, self.device
@@ -625,8 +628,16 @@ class StreamingSlam:
             and frame_id >= cfg.ba_frame
             and (frame_id + 1) % cfg.ba_freq_frame == 0
         ):
+            start = end = None
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
             with record_function("ba"):
                 self.state = self._ba_step(self.state, frame_id)
+            if end is not None:
+                end.record()
+            self.ba_log.append((frame_id, start, end))
 
         # prune cadence (no host read)
         if cfg.prune_map_on and (frame_id + 1) % cfg.prune_freq_frame == 0:
@@ -666,6 +677,7 @@ class StreamingSlam:
             insert_dropped=int(self.insert_dropped),
             prune_log=log(self.prune_log),
             filter_log=log(self.filter_log),
+            ba_frames=np.array([f for f, _, _ in self.ba_log], np.int64),
             **{f"leaf_{i}": v for i, v in enumerate(leaves)},
         )
 
@@ -690,6 +702,8 @@ class StreamingSlam:
             dropped = int(z["insert_dropped"]) if "insert_dropped" in z.files else 0
             log = lambda key: [tuple(int(x) for x in r) for r in z[key]] if key in z.files else []
             self.prune_log, self.filter_log = log("prune_log"), log("filter_log")
+            ba_frames = z["ba_frames"] if "ba_frames" in z.files else []
+            self.ba_log = [(int(f), None, None) for f in ba_frames]
             self.processed = int(z["processed"])
         self.state = state
         self.insert_dropped = torch.tensor(dropped, dtype=torch.int64, device=self.device)
@@ -709,4 +723,9 @@ class StreamingSlam:
             "insert_dropped": int(self.insert_dropped),
             "prunes": [(f, int(b), int(a)) for f, b, a in self.prune_log],
             "filtered": [(f, int(b), int(a)) for f, b, a in self.filter_log],
+            # frames where BA ran, and the ms between the CUDA events around
+            # each call (None on the CPU and for calls before a load_checkpoint)
+            "ba_frames": [f for f, _, _ in self.ba_log],
+            "ba_ms": [start.elapsed_time(end) if start is not None else None
+                      for _, start, end in self.ba_log],
         }

@@ -25,7 +25,8 @@ back-to-back launches, so these can lie under the bound. With
 ``--device cpu`` the plain versions run and no time is printed.
 
 ``--main-path`` adds the shapes at which the main path gathers
-(``mirror_cases``, ``mapper_cases``): the hash mirrors, [2^22, 4] and
+(``mirror_cases``, ``mapper_cases``, ``selection_cases``, ``dynba_cases``):
+the hash mirrors, [2^22, 4] and
 [2^21, 4] tables of (x, y, z, travel) rows indexed by the neighbour-cell
 buckets of a synthetic frame's points as the neural map's probe, the
 tracker, the local map's labels and the insert make them (those rows also
@@ -37,7 +38,9 @@ probe, at the four element widths the path gathers: f32 distances, int64
 buckets, bool validity and 16-byte mirror rows; the selectors are handed
 over as the path hands them, the first K columns of the whole sort, rows
 81 apart; ``torch.gather(1)``, the library call, is what the port ran
-there before). ``--host-cost`` adds the host microseconds of each wrapper
+there before), and those of the dynamic filter and BA (``dynba_cases``:
+BA's window-pose gather, the filter's mirror probe and selection over a
+whole scan, and ``query_feature``'s feature rows at both). ``--host-cost`` adds the host microseconds of each wrapper
 call and of each part of a launch, over 10k calls on the card.
 """
 
@@ -185,9 +188,45 @@ def _mirror(world, rows, voxel):
     return table
 
 
+def _buckets(points, offs, voxel, rows):
+    """The int64 buckets of ``points``' neighbour cells ``offs``, flat."""
+    from ..ops.voxel import neighbor_hash_soa
+
+    return neighbor_hash_soa(torch.from_numpy(points), torch.as_tensor(offs), voxel,
+                             rows).reshape(-1).numpy()
+
+
 def _pick(world, rng, count, jitter):
     sel = rng.choice(world.shape[0], count, replace=count > world.shape[0])
     return world[sel] + rng.normal(0, jitter, (count, 3)).astype(np.float32)
+
+
+def _select(pts: torch.Tensor, table: np.ndarray):
+    """The neighbourhood probe and the kNN sort as ``query_feature`` makes
+    them at the bench's 0.4 m voxels (81 cells, search_alpha 0.5): the
+    [N, 81] sorted distances (over the bench's max_valid_dist2, 4.32 m^2:
+    9e3), buckets, validity and mirror rows of ``pts`` in the mirror
+    ``table``, and the whole stable sort of the distances."""
+    from ..models.neural_map import smallest_k
+    from ..ops.voxel import neighbor_hash_soa, neighbor_offsets
+
+    nb81 = torch.as_tensor(neighbor_offsets(2, 0.5))
+    h = neighbor_hash_soa(pts, nb81, 0.4, table.shape[0])
+    mir = torch.from_numpy(table)[h]
+    d2 = torch.sum((mir[..., :3] - pts[:, None, :]) ** 2, dim=-1)
+    valid = d2 <= 4.32
+    d2s = torch.where(valid, d2, torch.full_like(d2, 9e3))
+    return d2s, h, valid, mir, smallest_k(d2s, d2s.shape[1])
+
+
+def _selection(who, pts, table, k, site):
+    """The four ``gather_lanes`` cases of one selection (``_select``):
+    its f32 distances, int64 buckets, bool validity and 16-byte mirror
+    rows, picked by the first ``k`` columns of the sort."""
+    d2s, h, valid, mir, order = _select(pts, table)
+    return [dict(variant=f"select {who} {name}", kernel="gather_lanes", table=src.numpy(),
+                 idx=order.numpy(), k=k, replaces=site)
+            for name, src in (("d2s", d2s), ("h", h), ("pvalid", valid), ("mir", mir))]
 
 
 def selection_cases(shrink: int = 1) -> List[dict]:
@@ -204,28 +243,80 @@ def selection_cases(shrink: int = 1) -> List[dict]:
     ``k`` its first columns that the path gathers with (``run_case`` hands
     the kernel that strided view, as ``smallest_k`` does). ``shrink``
     divides the point counts and the mirror's rows."""
-    from ..models.neural_map import smallest_k
-    from ..ops.voxel import neighbor_hash_soa, neighbor_offsets
-
     world, table = _frame(shrink)
     rng = np.random.default_rng(6)
-    nb81 = torch.as_tensor(neighbor_offsets(2, 0.5))
     cases = []
     for who, count, k, jitter, site in (
         ("mapper", 16384, 6, 0.1, "clid_slam_torch/mapping/mapper.py build_cache"),
         ("tracker", 8192, 16, 0.0, "clid_slam_torch/odometry/iekf.py build_candidates"),
     ):
         pts = torch.from_numpy(_pick(world, rng, count // shrink, jitter))
-        h = neighbor_hash_soa(pts, nb81, 0.4, table.shape[0])
-        mir = torch.from_numpy(table)[h]
-        d2 = torch.sum((mir[..., :3] - pts[:, None, :]) ** 2, dim=-1)
-        valid = d2 <= 4.32
-        d2s = torch.where(valid, d2, torch.full_like(d2, 9e3))
-        order = smallest_k(d2s, d2s.shape[1]).numpy()
-        for name, src in (("d2s", d2s), ("h", h), ("pvalid", valid), ("mir", mir)):
-            cases.append(dict(variant=f"select {who} {name}", kernel="gather_lanes",
-                              table=src.numpy(), idx=order, k=k, replaces=site))
+        cases += _selection(who, pts, table, k, site)
     return cases
+
+
+def dynba_cases(shrink: int = 1) -> List[dict]:
+    """``gather_rows`` and ``gather_lanes`` at the shapes that the dynamic
+    filter and sliding-window BA give them on the bench's small
+    configuration (the filter over a whole scan of 32768 points, BA 16384
+    pool samples an iteration over a 20-frame window, K 6, a map of 2^18
+    rows of 8 features and the sentinel row), with indices made as the
+    path makes them:
+
+    - BA's window-pose gather: the window's [20, 4, 4] poses as [20, 16]
+      rows, by ``clamp(ts - 20, 0, 19)`` of uniform draws from a pool that
+      holds 40 frames' samples (about half of them on row 0);
+    - the filter's hash-mirror probe, [2^22, 4] by the 81 neighbour cells
+      of the scan's points;
+    - the filter's kNN selection (``_selection``, K 6 of 81 for 32768
+      points);
+    - ``query_feature``'s feature rows for BA's samples (jittered by
+      0.1 m) and the filter's points: the map row of each of the K picks,
+      the sentinel row where a pick is invalid, a duplicate or empty; map
+      rows are numbered in the order the scan first reaches their bucket,
+      as the insert numbers them.
+
+    ``shrink`` divides the point counts, the map's rows and the mirror's."""
+    from ..ops.voxel import neighbor_offsets
+
+    world, table = _frame(shrink)
+    rng = np.random.default_rng(8)
+    cap = (1 << 18) // shrink
+    scan = torch.from_numpy(world[: 32768 // shrink])
+    samples = torch.from_numpy(_pick(world, rng, 16384 // shrink, 0.1))
+    buckets, first = np.unique(_buckets(world, np.zeros((1, 3), np.int32), 0.4, table.shape[0]),
+                               return_index=True)
+    hash_rows = np.full(table.shape[0], -1, np.int64)
+    hash_rows[buckets[np.argsort(first)]] = np.arange(buckets.size) % cap
+    feats = rng.normal(0, 0.1, (cap + 1, 8)).astype(np.float32)
+
+    def feature_rows(pts):  # query_feature's ``safe`` for the first K 6 picks
+        from ..models.neural_map import dedupe_mask
+
+        d2s, h, valid, _, order = _select(pts, table)
+        sel = order[:, :6]
+        h_sel = torch.gather(h, 1, sel)
+        rows = torch.from_numpy(hash_rows)[h_sel]
+        ok = torch.gather(valid, 1, sel) & ~dedupe_mask(h_sel) & (rows >= 0)
+        return torch.where(ok, rows, torch.full_like(rows, cap)).reshape(-1).numpy()
+
+    poses = np.tile(np.eye(4, dtype=np.float32), (20, 1, 1))
+    poses[:, :3, 3] = rng.normal(0, 1.0, (20, 3))
+    ts = rng.integers(0, 40, 16384 // shrink)
+    ba, flt = "clid_slam_torch/mapping/bundle_adjustment.py", "clid_slam_torch/mapping/dynamic_filter.py"
+    query = "clid_slam_torch/models/neural_map.py query_feature ("
+    return [
+        dict(variant="BA pose gather", kernel="gather_rows", table=poses.reshape(20, 16),
+             idx=np.clip(ts - 20, 0, 19).astype(np.int64), replaces=ba + " bundle_adjust"),
+        dict(variant="mirror filter probe", kernel="gather_rows", table=table,
+             idx=_buckets(world[: 32768 // shrink], neighbor_offsets(2, 0.5), 0.4, table.shape[0]),
+             replaces="clid_slam_torch/models/neural_map.py neighborhood_probe (" + flt + ")"),
+        *_selection("filter", scan, table, 6, query + flt + ")"),
+        dict(variant="query feats BA", kernel="gather_rows", table=feats,
+             idx=feature_rows(samples), replaces=query + ba + ")"),
+        dict(variant="query feats filter", kernel="gather_rows", table=feats,
+             idx=feature_rows(scan), replaces=query + flt + ")"),
+    ]
 
 
 def mirror_cases(shrink: int = 1) -> List[dict]:
@@ -238,15 +329,12 @@ def mirror_cases(shrink: int = 1) -> List[dict]:
     0.5; the local map 7 cells of 0.2 m). ``shrink`` divides the table rows
     and the point counts, for CPU tests."""
     from ..models.local_map import LOCAL_NB_OFFSETS
-    from ..ops.voxel import neighbor_hash_soa, neighbor_offsets
+    from ..ops.voxel import neighbor_offsets
 
     world, t_map = _frame(shrink)
     rng = np.random.default_rng(5)
     pick = lambda count, jitter: _pick(world, rng, count, jitter)
-
-    def idx(points, offs, voxel, rows):
-        return neighbor_hash_soa(torch.from_numpy(points), torch.as_tensor(offs), voxel,
-                                 rows).reshape(-1).numpy()
+    idx = _buckets
 
     nmap, local = (1 << 22) // shrink, (1 << 21) // shrink
     nb81 = neighbor_offsets(2, 0.5)
@@ -411,11 +499,11 @@ def host_cost(device=None, reps: int = 10000, parts: bool = False) -> dict:
 
 def run(device=None, shrink: int = 1, reps: int = 200, main_path: bool = False) -> List[dict]:
     """Run the six variants (and with ``main_path`` the hash-mirror,
-    mapper and selection shapes) on ``device`` (None: the card). Returns
+    mapper, selection, filter and BA shapes) on ``device`` (None: the card). Returns
     one row per variant; raises on any mismatch with the plain version."""
     dev = resolve_device(device)
     extra = (mirror_cases(shrink) + mapper_cases(shrink) + selection_cases(shrink)
-             if main_path else [])
+             + dynba_cases(shrink) if main_path else [])
     cases = make_cases(shrink) + extra
     return [run_case(case, dev, reps) for case in cases]
 
@@ -425,8 +513,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default=None, help="'cpu' runs the plain versions; default: the card")
     ap.add_argument("--shrink", type=int, default=1, help="divide every row count by this")
     ap.add_argument("--main-path", action="store_true",
-                    help="add the main path's shapes: the hash mirrors, the mapper's slab "
-                    "and the kNN selection")
+                    help="add the main path's shapes: the hash mirrors, the mapper's slab, "
+                    "the kNN selection, the dynamic filter's and BA's")
     ap.add_argument("--host-cost", action="store_true",
                     help="also time each part of a launch's host path (card only)")
     args = ap.parse_args(argv)

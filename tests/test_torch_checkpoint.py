@@ -55,7 +55,7 @@ def test_resume_equals_the_uninterrupted_run(seq, tmp_path, options):
 
     for k in ("odom_poses", "losses", "track_iters", "travel_dist"):
         np.testing.assert_array_equal(out_a[k], out_c[k], err_msg=k)
-    for k in ("neural_points", "insert_dropped", "prunes", "filtered", "failed"):
+    for k in ("neural_points", "insert_dropped", "prunes", "filtered", "ba_frames", "failed"):
         assert out_a[k] == out_c[k], k
     for x, y in zip(a.state.leaves(), c.state.leaves()):
         if isinstance(x, torch.Generator):
@@ -64,6 +64,7 @@ def test_resume_equals_the_uninterrupted_run(seq, tmp_path, options):
             assert torch.equal(x, y)
     if options:
         assert len(out_c["filtered"]) == 9  # every tracked frame was filtered
+        assert out_c["ba_frames"] == [7]
 
 
 def test_jax_checkpoint_loads_into_the_port(seq, tmp_path):

@@ -472,6 +472,35 @@ def test_gather_lanes_kernel_is_exact_at_the_selection_shapes(variant, idx_type)
     assert torch.equal(gt.gather_lanes(src, strided.contiguous()), want)
 
 
+@functools.lru_cache(maxsize=1)
+def _dynba_cases():
+    from clid_slam_torch.tools import probe_gather as pg
+
+    return {c["variant"]: c for c in pg.dynba_cases()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["BA pose gather", "mirror filter probe", "query feats BA",
+                                     "query feats filter"] + [
+                                         f"select filter {s}" for s in ("d2s", "h", "pvalid", "mir")])
+def test_gather_kernels_are_exact_at_the_filter_and_ba_shapes(variant):
+    """The dynamic filter's and BA's gathers with the path's indices (int64,
+    the selectors strided as smallest_k hands them over): one launch each,
+    equal to the plain version bit for bit."""
+    from clid_slam_torch.ops import gather as gt
+
+    dev = _cuda()
+    case = _dynba_cases()[variant]
+    table = torch.from_numpy(case["table"]).to(dev)
+    idx = torch.from_numpy(case["idx"]).to(dev)
+    if "k" in case:
+        idx = idx[:, :case["k"]]
+    before = dict(gt.launches)
+    out = getattr(gt, case["kernel"])(table, idx)
+    assert gt.launches[case["kernel"]] == before[case["kernel"]] + 1
+    assert torch.equal(out, getattr(gt, case["kernel"] + "_reference")(table, idx))
+
+
 @pytest.mark.gpu
 def test_gather_lanes_kernel_passes_the_gradient():
     """A source that needs a gradient (query_feature's distances when its

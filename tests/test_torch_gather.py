@@ -205,7 +205,8 @@ def test_probe_main_path_shapes_on_cpu():
         assert 0 < hit.mean() < 1
     rows = pg.run("cpu", shrink=64, main_path=True)[6:]
     assert [r["variant"] for r in rows] == [
-        c["variant"] for c in cases + pg.mapper_cases(64) + pg.selection_cases(64)]
+        c["variant"] for c in
+        cases + pg.mapper_cases(64) + pg.selection_cases(64) + pg.dynba_cases(64)]
     assert all(r["exact"] and "ms" not in r for r in rows)
 
 
@@ -234,6 +235,34 @@ def test_probe_selection_shapes_on_cpu():
         assert torch.equal(gt.gather_lanes(src, idx), lib(src, idx))
     rows = [pg.run_case(c, torch.device("cpu")) for c in cases[:1] + cases[4:5]]
     assert [r["idx"] for r in rows] == [[256, 6], [128, 16]]
+
+
+def test_probe_filter_and_ba_shapes_on_cpu():
+    """The probe's filter and BA variants, cut 64-fold: the window-pose
+    gather's rows clamp to the window (about half on its first row), the
+    filter's probe and selection cover the whole scan, and the feature
+    rows are map rows of occupied buckets or the sentinel row, as
+    query_feature makes them."""
+    world, mirror = pg._frame(64)
+    cases = {c["variant"]: c for c in pg.dynba_cases(64)}
+    assert list(cases) == ["BA pose gather", "mirror filter probe"] + [
+        f"select filter {s}" for s in ("d2s", "h", "pvalid", "mir")] + [
+        "query feats BA", "query feats filter"]
+    pose = cases["BA pose gather"]
+    assert pose["table"].shape == (20, 16) and pose["idx"].shape == (256,)
+    assert set(np.unique(pose["idx"])) == set(range(20)) and 0.4 < np.mean(pose["idx"] == 0) < 0.6
+    assert cases["mirror filter probe"]["idx"].shape == (512 * 81,)
+    assert cases["select filter d2s"]["table"].shape == (512, 81)
+    assert all(cases[f"select filter {s}"]["k"] == 6 for s in ("d2s", "h", "pvalid", "mir"))
+    n_map = np.sum(mirror[:, 3] == 0.0)  # occupied buckets: one map row each
+    for who, count in (("BA", 256), ("filter", 512)):
+        c = cases[f"query feats {who}"]
+        cap = c["table"].shape[0] - 1
+        assert cap == (1 << 18) // 64 and c["idx"].shape == (count * 6,)
+        rows = c["idx"][c["idx"] != cap]
+        assert rows.size > 0.9 * c["idx"].size and rows.max() < min(n_map, cap)
+    rows = [pg.run_case(c, torch.device("cpu")) for c in cases.values()]
+    assert all(r["exact"] for r in rows)
 
 
 @pytest.mark.parametrize(
