@@ -63,8 +63,10 @@ Phases, each printing one JSON line:
           and BA take through the gather kernels at their full-width shapes
           (query_feature's decoded SDF wrt the points and the features at
           the last scan's 32768 points and at 16384 pool samples; BA's
-          window-pose gather): through the kernels twice and through their
-          plain versions on the card, all equal bit for bit;
+          window-pose gather), and at the filter's shape decode-then-weight's
+          (wrt the points and the features) and the color query's (wrt a
+          color slab of feature_dim columns): through the kernels twice and
+          through their plain versions on the card, all equal bit for bit;
   checkpoint_resume  the same configuration for frames 0-24 in a fresh
           system, saved with save_checkpoint, loaded into another fresh
           system and continued over frames 25-39: its trajectory, losses,
@@ -73,6 +75,19 @@ Phases, each printing one JSON line:
   stream_requery   the small configuration with track_cached=False (the
           map re-queried at every IESEKF iteration), 12 frames: ATE under
           0.2 m and at least 3 gather_lanes launches an iteration;
+  stream_dtw, stream_bf16, stream_color_sem  the small configuration, 12
+          frames (10 warm-up), with decode-then-weight (weighted_first=False),
+          with bf16 decoding (mlp_bf16), and with the color (1 channel) and
+          20-class semantic heads: ATE under 0.3 m each, tracked frames on the
+          mapper's autograd loop (map_loop not launched), the color slab's
+          gathers counted with the others (2 more gather_rows a tracked frame);
+  color_sem_map    the modules at bench widths on labelled data: the first
+          scan of the small sequence with an intensity from each point's
+          azimuth and a class 1..4 from its quadrant, through prep (colors and
+          classes into the pool) and the tracked frames' single-batch mapping
+          body with both heads, 10 frames: the color L1 and the semantic NLL
+          at the scan's points must fall, and the color slab's gathers at the
+          mapper's shapes equal their plain versions bit for bit;
   kernels the per-kernel summary line.
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 
@@ -93,6 +108,9 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the color (1 channel) and 20-class semantic heads of stream_color_sem
+COLOR_SEM = dict(color_on=True, color_channel=1, semantic_on=True, sem_class_count=20)
 
 # bench shapes of the mapping kernel (bench.py small config)
 BS, K, F, P, H = 16384, 6, 8, 3, 64
@@ -198,14 +216,16 @@ def make_system(large, n_frames, device, seq=None, **overrides):
 def expected_launches(cfg, n_frames, track_iters, ba_frames):
     """The least gather_rows and gather_lanes launches a run makes: per
     tracked frame the mapper's slab and mirror gathers and the tracker's,
-    the insert's and the labels' mirror gathers (6 rows), the selection's
-    lane gathers (3 in the tracker, 4 in the mapper); with the re-querying
+    the insert's and the labels' mirror gathers (6 rows; 8 with the color
+    slab), the selection's lane gathers (3 in the tracker, 4 in the
+    mapper); with the re-querying
     tracker 3 lane gathers an IESEKF iteration; the dynamic filter's query
     (2 rows, 4 lanes) a tracked frame; the BA's query and pose gather (3
     rows, 4 lanes) an iteration."""
     tracked = sum(1 for i in range(n_frames) if cfg.track_on and i > 0)
     tracker_lanes = 3 * (int(sum(track_iters[1:n_frames])) if not cfg.track_cached else tracked)
-    rows, lanes = 6 * tracked, tracker_lanes + 4 * tracked
+    # the color slab's work rows and references: 2 more a tracked frame
+    rows, lanes = (8 if cfg.color_on else 6) * tracked, tracker_lanes + 4 * tracked
     if cfg.dynamic_filter_on:
         rows, lanes = rows + 2 * tracked, lanes + 4 * tracked
     n_ba = len(ba_frames) * cfg.ba_iters
@@ -387,9 +407,12 @@ def gradient_check(system, seq, n_frames, device):
     wrt the points and the map's features at the filter's points (the last
     scan in the world frame) and at BA's (``ba_bs`` pool samples), and BA's
     window-pose gather (``gather_rows_nd``'s sorted backward) at its
-    [window, 4, 4] poses by ``ba_bs`` window rows. Each through the kernels
-    twice and through their plain versions on the card once: all three
-    equal bit for bit."""
+    [window, 4, 4] poses by ``ba_bs`` window rows; at the filter's points
+    also decode-then-weight's (each neighbour decoded, then weighted) wrt
+    the points and the features, and ``query_color_feature``'s decoded color
+    wrt a color slab of feature_dim columns. Each through the kernels twice
+    and through their plain versions on the card once: all three equal bit
+    for bit."""
     from dataclasses import replace
 
     import torch
@@ -412,22 +435,42 @@ def gradient_check(system, seq, n_frames, device):
     poses = st.odom_poses[cur - w + 1 : cur + 1]
     cot = torch.randn((cfg.ba_bs, 4, 4), generator=gen, device=device)
 
-    def query_grads(points):
+    # a color slab of feature_dim columns (the dynba map has none), from a seed
+    color_feats = torch.randn((st.map_state.geo_feats.shape[0], cfg.feature_dim),
+                              generator=gen, device=device)
+
+    def query(state, points, weighted_first=True):
+        return nm.query_feature(state, points, offs, cfg.voxel_size_m, dist2, cfg.query_nn_k,
+                                st.travel_dist, cur, cfg.diff_travel_dist_local, True,
+                                encode_vecs=system.encode_vecs, weighted_first=weighted_first)
+
+    def query_grads(points, weighted_first=True):
         p = points.clone().requires_grad_(True)
         f = st.map_state.geo_feats.clone().requires_grad_(True)
-        q = nm.query_feature(replace(st.map_state, geo_feats=f), p, offs, cfg.voxel_size_m,
-                             dist2, cfg.query_nn_k, st.travel_dist, cur,
-                             cfg.diff_travel_dist_local, True, encode_vecs=system.encode_vecs)
+        q = query(replace(st.map_state, geo_feats=f), p, weighted_first)
         pred = dec.sdf(st.mlp, q.feature, cfg.sdf_scale, leaky=cfg.mlp_leaky_relu)
+        if not weighted_first:  # decode-then-weight
+            pred = torch.sum(pred * q.weights, dim=1)
         return torch.autograd.grad(torch.sum(pred + pred**2), (p, f))
+
+    def color_grads(points):
+        c = color_feats.clone().requires_grad_(True)
+        state = replace(st.map_state, color_feats=c)
+        cf = nm.query_color_feature(state, query(state, points), cfg.feature_dim)
+        return torch.autograd.grad(torch.sum(dec.regress_color(st.color_mlp, cf)), c)
 
     def pose_grad():
         t = poses.clone().requires_grad_(True)
         return torch.autograd.grad(torch.sum(gt.gather_rows_nd(t, w_idx) * cot), t)
 
+    world = scan @ pose[:3, :3].T + pose[:3, 3]
     cases = (
-        ("filter", ("points", "features"), lambda: query_grads(scan @ pose[:3, :3].T + pose[:3, 3]),
+        ("filter", ("points", "features"), lambda: query_grads(world),
          {"gather_rows": 2, "gather_lanes": 4}),
+        ("filter_decode_then_weight", ("points", "features"), lambda: query_grads(world, False),
+         {"gather_rows": 2, "gather_lanes": 4}),
+        ("filter_color_query", ("color_feats",), lambda: color_grads(world),
+         {"gather_rows": 3, "gather_lanes": 4}),
         ("ba", ("points", "features"), lambda: query_grads(samples),
          {"gather_rows": 2, "gather_lanes": 4}),
         ("ba_pose_gather", ("poses",), pose_grad, {"gather_rows": 1, "gather_lanes": 0}),
@@ -460,6 +503,113 @@ def gradient_check(system, seq, n_frames, device):
     emit(res)
     if wrong:
         raise AssertionError(f"gradient_check: {wrong}")
+    return res
+
+
+def color_sem_map(device, n_frames=10):
+    """The color and semantic heads at bench widths on labelled data: the
+    small sequence's first scan, each point with an intensity from its
+    azimuth and a class 1..4 from its quadrant (a tenth left unlabelled,
+    drawn from the config's seed), through ``prep`` (colors and classes into
+    a 2^21-row pool) and the tracked frames' single-batch mapping body (bs
+    16384) with both heads, ``n_frames`` frames of that scan. After each
+    frame the color L1 and the semantic NLL at the scan's points (those with
+    a neighbour) are read through ``query_color_feature`` and the heads:
+    both must fall from the first frame to the last. Then the color slab's
+    gathers at the mapper's shapes (its work rows, [2^18+1, 8] by 98304,
+    and their expanded references) through the kernel and through its plain
+    version: equal bit for bit."""
+    import torch
+
+    from clid_slam_torch.mapping import mapper as mp
+    from clid_slam_torch.mapping import prep as prp
+    from clid_slam_torch.models import decoder as dec
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.pipeline import streaming as sm
+    from clid_slam_torch.tools import time_map_loop as tml
+
+    cfg, seq, system = make_system(False, 1, device, **COLOR_SEM)
+    st, F = system.state, cfg.feature_dim
+    pts = np.asarray(seq.scans[0][:, :3], np.float32)
+    az = np.arctan2(pts[:, 1], pts[:, 0]) + np.pi
+    rng = np.random.default_rng(cfg.seed)
+    intensity = (0.5 * (np.sin(2 * az) + 1)).astype(np.float32)
+    cls = np.minimum(az // (np.pi / 2), 3).astype(np.int32) + 1
+    cls[rng.uniform(size=len(cls)) < 0.1] = 0
+    t = lambda a: torch.from_numpy(a).to(device)
+    points, colors, sem = t(pts), t(intensity[:, None]), t(cls)
+    mask = torch.ones(len(pts), dtype=torch.bool, device=device)
+    pose = torch.from_numpy(np.asarray(seq.poses[0], np.float32)).to(device)
+    world = points @ pose[:3, :3].T + pose[:3, 3]
+    prep = prp.make_prep_fn(filter_pool_now=False, **sm.prep_kwargs(cfg))
+    mapping = mp.make_mapping_fn(**dict(
+        sm.mapping_kwargs(cfg, system.nb_offs, system.encode_vecs),
+        resample_every=max(cfg.map_resample_every, cfg.iters + 10), max_outer=1,
+        dup_independent=cfg.map_dup_independent))
+    offs = torch.as_tensor(system.nb_offs, device=device)
+    dist2 = 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
+    window = cfg.diff_travel_dist_local
+    map_state, local_map, pool = st.map_state, st.local_map, st.pool
+    mlps = (st.mlp, st.color_mlp, st.sem_mlp)
+    ml.launches = 0
+    gt.reset_launches()
+    color_l1, sem_nll, ms = [], [], []
+    for i in range(n_frames):
+        t0 = time.perf_counter()
+        res = prep(map_state, local_map, pool, points, mask, pose, st.travel_dist, i, window,
+                   generator=st.key, colors=colors, sem_labels=sem)
+        map_state, local_map, pool = res.map_state, res.local_map, res.pool
+        map_state, *mlps, _ = mapping(map_state, *mlps, pool, st.travel_dist, i, window,
+                                      cfg.iters, 1.0, generator=st.key)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            q = nm.query_feature(map_state, world, offs, cfg.voxel_size_m, dist2, cfg.query_nn_k,
+                                 st.travel_dist, i, window, True, encode_vecs=system.encode_vecs)
+            ok = q.nn_count > 0
+            cpred = dec.regress_color(mlps[1], nm.query_color_feature(map_state, q, F))[:, 0]
+            color_l1.append(float(torch.abs(cpred - colors[:, 0])[ok].mean()))
+            logp = dec.sem_label_prob(mlps[2], q.feature)
+            nll = -torch.gather(logp, 1, sem.long()[:, None].clamp(min=0))[:, 0]
+            sem_nll.append(float(nll[ok & (sem > 0)].mean()))
+    launches, gathers = ml.launches, dict(gt.launches)
+    # the color slab's gathers at the mapper's shapes, on the trained map
+    c = mapping.build_cache(map_state, pool, st.travel_dist, n_frames - 1, window,
+                            torch.Generator(device=device).manual_seed(1), None)
+    slab = map_state.color_feats
+    work = gt.gather_rows(slab, c.src_rows)
+    refs = gt.gather_rows_nd(work, c.local_idx)
+    exact = (torch.equal(work, gt.gather_rows_reference(slab, c.src_rows))
+             and torch.equal(refs, gt.gather_rows_reference(work, c.local_idx)))
+    gather_ms = tml.eager_ms(lambda: gt.gather_rows(slab, c.src_rows), reps=50)
+    plain_ms = tml.eager_ms(lambda: gt.gather_rows_reference(slab, c.src_rows), reps=50)
+    labelled = int(((pool.data[:, 6] > 0) & pool.valid).sum())
+    res = {"phase": "color_sem_map", "frames": n_frames, "points": len(pts),
+           "pool_rows_labelled": labelled, "neural_points": int(map_state.count),
+           "ms_per_frame": ms, "color_l1": color_l1, "sem_nll": sem_nll,
+           "color_l1_first_last": [color_l1[0], color_l1[-1]],
+           "sem_nll_first_last": [sem_nll[0], sem_nll[-1]],
+           "map_loop_launches": launches, "gather_rows_launches": gathers["gather_rows"],
+           "gather_lanes_launches": gathers["gather_lanes"],
+           "color_slab_gather": {"table": list(slab.shape), "idx": list(c.src_rows.shape),
+                                 "refs": list(c.local_idx.shape), "exact": exact,
+                                 "ms": gather_ms, "plain_ms": plain_ms}}
+    emit(res)
+    wrong = []
+    if not (np.isfinite(color_l1).all() and np.isfinite(sem_nll).all()):
+        wrong.append("non-finite losses")
+    if not color_l1[-1] < color_l1[0]:
+        wrong.append(f"color L1 {color_l1[0]} -> {color_l1[-1]} did not fall")
+    if not sem_nll[-1] < sem_nll[0]:
+        wrong.append(f"semantic NLL {sem_nll[0]} -> {sem_nll[-1]} did not fall")
+    if not exact:
+        wrong.append("the color slab's gathers differ from their plain versions")
+    if launches != 0 or gathers["gather_rows"] < 4 * n_frames or labelled == 0:
+        wrong.append(f"launches {launches} map_loop, {gathers}; labelled rows {labelled}")
+    if wrong:
+        raise AssertionError(f"color_sem_map: {wrong}")
     return res
 
 
@@ -727,7 +877,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 5 steady frames of a fresh small run and of a "
-                    "fresh 60-frame large run, and the last 10 frames of stream_dynba's")
+                    "fresh 60-frame large run, the last 10 frames of stream_dynba's and "
+                    "the last 5 of each option phase's")
     args = ap.parse_args()
 
     import torch
@@ -780,13 +931,24 @@ def main():
     resumed = checkpoint_resume(dynba_system, dynba_seq, 25, device, **dynba_kw)
     del dynba_system
     requery = stream_phase("stream_requery", False, 12, 10, device, track_cached=False)[0]
+    seq12 = bench_cases.make_sequence(False, 12)
+    options = [stream_phase(name, False, 12, 10, device, fused=False, ate_gate=0.3, seq=seq12,
+                            **kw)[0]
+               for name, kw in (("stream_dtw", dict(weighted_first=False)),
+                                ("stream_bf16", dict(mlp_bf16=True)),
+                                ("stream_color_sem", COLOR_SEM))]
+    labelled = color_sem_map(device)
     if args.profile:
         profile_phase(False, 20, 5, device)
         profile_phase(True, 60, 5, device)
         profile_phase(False, 40, 10, device, **dynba_kw)  # frames 30-39, BA at 39
+        # the option phases' last 5 frames: frame.map on the autograd loop
+        for kw in (dict(weighted_first=False), dict(mlp_bf16=True), COLOR_SEM):
+            profile_phase(False, 12, 5, device, **kw)
 
     def by_path(key):
-        return {r["phase"]: r[key] for r in (small, large, fallback, dynba, resumed, requery)}
+        return {r["phase"]: r[key]
+                for r in (small, large, fallback, dynba, resumed, requery, *options, labelled)}
 
     main_case = cases[0]  # the bench config: 1 hidden layer, no layer norm
     # launches: the count on the large run, this script's full-width path;

@@ -41,6 +41,7 @@ def make_ba_fn(
     lr_map: float,
     adam_eps: float = 1e-15,
     mlp_leaky: bool = False,
+    mlp_bf16: bool = False,
     encode_vecs=None,
 ):
     """Returns ``bundle_adjust(map_state, mlp, pool, poses0[W,4,4],
@@ -97,7 +98,7 @@ def make_ba_fn(
                     max_valid_dist2, knn_k, travel_dist, cur_ts, window, True,
                     encode_vecs=encode_vecs,
                 )
-                pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky)
+                pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
                 # squared SDF at measured surface points (utils/mapper.py:927)
                 loss = torch.sum(pred**2 * sel) / torch.clamp(torch.sum(sel), min=1.0)
                 g_d, g_f = torch.autograd.grad(loss, (d, f))

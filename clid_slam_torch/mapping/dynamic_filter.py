@@ -31,6 +31,7 @@ def make_dynamic_filter_fn(
     certainty_thre: float,
     sdf_ratio_thre: float,
     mlp_leaky: bool = False,
+    mlp_bf16: bool = False,
     encode_vecs=None,
 ):
     """Returns ``static_mask(map_state, mlp, points_world[N,3], mask[N],
@@ -45,7 +46,7 @@ def make_dynamic_filter_fn(
                 map_state, pts, offs_t.to(pts.device), resolution, max_valid_dist2,
                 knn_k, travel_dist, cur_ts, window, True, encode_vecs=encode_vecs,
             )
-            pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky)
+            pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
             (grad,) = torch.autograd.grad(pred.sum(), pts)
         pred = pred.detach()
         uncertain = q.certainty < certainty_thre

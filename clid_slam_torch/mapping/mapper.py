@@ -16,7 +16,11 @@ Two bodies, as in the JAX streaming step:
 
 The work-slab gathers go through ``ops/gather.py:gather_rows`` (the
 hand-written row-gather kernel on the card): once per autograd step in
-``_SlabGatherSorted`` and twice per single-batch call.
+``_SlabGatherSorted`` and twice per single-batch call, for the geometric
+slab and, with ``color_on``, for the color slab.
+
+Color, semantics, decode-then-weight and bf16 decoding are not in the
+fused kernel: tracked frames with any of them map with the autograd loop.
 """
 
 from __future__ import annotations
@@ -160,6 +164,8 @@ class BatchCache(NamedTuple):
     label: torch.Tensor
     weight: torch.Tensor
     ts: torch.Tensor  # [bs] i32
+    sem_lbl: torch.Tensor  # [bs] i32
+    color_lbl: torch.Tensor  # [bs,C]
     valid: torch.Tensor  # [bs,k]
     knn_idx: torch.Tensor  # [bs,k] map rows (-1 invalid)
     local_idx: torch.Tensor  # [bs,k] work-slab rows
@@ -167,9 +173,11 @@ class BatchCache(NamedTuple):
     order: torch.Tensor  # [bs*k] argsort of the flat map rows
     run_lengths: torch.Tensor  # [W] references per work row
     w0: torch.Tensor  # [bs,k]
-    encw0: torch.Tensor  # [bs,P]
+    enc0: torch.Tensor  # [bs,k,P] per neighbour (decode-then-weight)
+    encw0: torch.Tensor  # [bs,P] weighted sum (weighted-first)
     vd: torch.Tensor  # [bd]
     w_tap: torch.Tensor  # [6,bd,k]
+    enc_tap: torch.Tensor  # [6,bd,k,P]
     enc_tapw: torch.Tensor  # [6,bd,P]
 
 
@@ -194,6 +202,10 @@ def make_mapping_fn(
     mlp_bf16: bool = False,
     color_on: bool = False,
     sem_on: bool = False,
+    weight_i: float = 1.0,
+    weight_s: float = 1.0,
+    surface_sample_range_m: float = 0.25,
+    freespace_label_on: bool = False,
     encode_vecs=None,
     weighted_first: bool = True,
     layer_norm: bool = False,
@@ -202,17 +214,21 @@ def make_mapping_fn(
     max_outer: int = 0,
     dup_independent: bool = False,
 ):
-    """Returns ``mapping(map_state, mlp, pool, travel_dist, cur_ts, window,
-    iter_count, mlp_lr_scale, generator=None, batch_draws=None) ->
-    (map_state, mlp, losses[2])``. ``batch_draws`` is a list with one
-    (idx_hist, pick) pair per replay batch (see
-    ``pool.sample_batch_indices``); otherwise batches come from
-    ``generator``."""
-    if color_on or sem_on or not weighted_first or mlp_bf16:
-        raise NotImplementedError(
-            "the port's mapper covers the geometric weighted_first f32 path; "
-            "color, semantics, decode-then-weight and bf16 are later work"
-        )
+    """Returns ``mapping(map_state, mlp, color_mlp, sem_mlp, pool,
+    travel_dist, cur_ts, window, iter_count, mlp_lr_scale, generator=None,
+    batch_draws=None) -> (map_state, mlp, color_mlp, sem_mlp, losses[2])``.
+    ``batch_draws`` is a list with one (idx_hist, pick) pair per replay
+    batch (see ``pool.sample_batch_indices``); otherwise batches come from
+    ``generator``. ``mapping.build_cache`` samples and freezes one batch.
+
+    Beside the SDF and eikonal losses: with ``color_on`` the second feature
+    slab ``color_feats`` trains with ``color_mlp`` (an L1 loss on surface
+    samples, weight ``weight_i``); with ``sem_on`` ``sem_mlp`` decodes the
+    geometric features (an NLL loss on labelled samples, weight
+    ``weight_s``), so its gradient reaches those features too. A head that
+    is off is neither decoded nor updated. ``weighted_first=False`` decodes
+    each neighbour and weights the decoded values; ``mlp_bf16`` decodes in
+    bf16 (``models/decoder.py``)."""
     if max_outer not in (0, 1):
         raise NotImplementedError(
             "the port has the general body (max_outer=0) and the single-batch "
@@ -223,6 +239,7 @@ def make_mapping_fn(
     R = max(1, resample_every)
     W = bs * knn_k
     offs_t = torch.as_tensor(nb_offs)
+    dkw = dict(leaky=mlp_leaky, bf16=mlp_bf16)
 
     def build_cache(map_state, pool, travel_dist, cur_ts, window, generator, draws):
         """Sample one batch and freeze its query geometry."""
@@ -237,7 +254,7 @@ def make_mapping_fn(
         order = torch.argsort(key_h, stable=True)
         idx, rows = idx[order], rows[order]
         bvalid = (pool.valid[idx] & (idx < pool.size)).to(torch.float32)
-        coord, label, weight, ts, _, _ = split_rows(rows)
+        coord, label, weight, ts, sem_lbl, color_lbl = split_rows(rows)
 
         d2, h, pvalid, mir = nm.neighborhood_probe(
             map_state, coord, offs_t.to(dev), resolution, max_valid_dist2,
@@ -291,38 +308,61 @@ def make_mapping_fn(
             0, runid, torch.ones_like(runid)
         )
         return BatchCache(
-            bvalid=bvalid, label=label, weight=weight, ts=ts, valid=valid,
-            knn_idx=knn_idx, local_idx=local_idx, src_rows=src_ext[:W],
-            order=order_g, run_lengths=run_lengths, w0=w0,
-            encw0=torch.sum(enc0 * w0[..., None], dim=1), vd=vd, w_tap=w_tap,
-            enc_tapw=torch.sum(enc_tap * w_tap[..., None], dim=2),
+            bvalid=bvalid, label=label, weight=weight, ts=ts, sem_lbl=sem_lbl,
+            color_lbl=color_lbl, valid=valid, knn_idx=knn_idx, local_idx=local_idx,
+            src_rows=src_ext[:W], order=order_g, run_lengths=run_lengths, w0=w0,
+            enc0=enc0, encw0=torch.sum(enc0 * w0[..., None], dim=1), vd=vd, w_tap=w_tap,
+            enc_tap=enc_tap, enc_tapw=torch.sum(enc_tap * w_tap[..., None], dim=2),
         )
 
+    def decode_weighted(mlp_, feats, enc, w, encw, head, **kw):
+        """``head`` over the kNN features [..., k, F] and encodings: of the
+        weighted feature ‖ the weighted encoding ``encw`` (weighted-first),
+        or per neighbour and then weighted (decode-then-weight)."""
+        if weighted_first:
+            fw = torch.sum(feats * w[..., None], dim=-2)
+            return head(mlp_, torch.cat([fw, encw], -1), **kw)
+        pred_k = head(mlp_, torch.cat([feats, enc], -1), **kw)
+        if pred_k.dim() == w.dim():  # a scalar head
+            return torch.sum(pred_k * w, dim=-1)
+        return torch.sum(pred_k * w[..., None], dim=-2)
+
     def make_loss_fn(c: BatchCache, expanded: bool = False, saturated_grad: bool = True):
-        """``loss_fn(params, mlp)``; ``params`` is the [W, F] work slab or,
-        with ``expanded``, the [bs, k, F] per-reference features;
-        ``saturated_grad`` as in ``make_sdf_loss``."""
+        """``loss_fn(works, mlps)``; ``works`` holds the [W, F] work slab
+        (and the color slab with ``color_on``) or, with ``expanded``, the
+        [bs, k, F] per-reference features; ``mlps`` the geometric MLP (then
+        the color and the semantic MLP when on); ``saturated_grad`` as in
+        ``make_sdf_loss``."""
         sdf_loss_of = make_sdf_loss(
             c.label, c.weight, c.bvalid, loss_type=loss_type, sigma=sigma,
             loss_weight_on=loss_weight_on, saturated_grad=saturated_grad,
         )
         eik_den = torch.clamp(torch.sum(c.vd), min=1.0)
+        w_lbl = torch.abs(c.weight) * c.bvalid if loss_weight_on else c.bvalid
+        surface_mask = (torch.abs(c.label) < surface_sample_range_m).to(torch.float32) * c.bvalid
+        lbl_ok = (c.sem_lbl >= 0) if freespace_label_on else (c.sem_lbl > 0)
+        sem_mask = lbl_ok.to(torch.float32) * c.bvalid
+        sem_idx = torch.clamp(c.sem_lbl, min=0).long()[:, None]
 
-        def loss_fn(work, mlp_):
-            f = work if expanded else _SlabGatherSorted.apply(
-                work, c.local_idx, c.order, c.run_lengths
+        def gather(slab):
+            return slab if expanded else _SlabGatherSorted.apply(
+                slab, c.local_idx, c.order, c.run_lengths
             )
+
+        def loss_fn(works, mlps):
+            mlp_ = mlps[0]
+            f = gather(works[0])
             if layer_norm:
                 f = nm.layer_norm_feats(f)
             f = torch.where(c.valid[..., None], f, torch.zeros_like(f))
-            fw = torch.sum(f * c.w0[..., None], dim=1)
-            pred = dec.sdf(mlp_, torch.cat([fw, c.encw0], -1), sdf_scale, leaky=mlp_leaky)
+            pred = decode_weighted(mlp_, f, c.enc0, c.w0, c.encw0, dec.sdf,
+                                   sdf_scale=sdf_scale, **dkw)
             sdf_loss = sdf_loss_of(pred)
             fd = f[::dec_step][:bd]
-            fw_t = torch.sum(fd[None] * c.w_tap[..., None], dim=2)  # [6,bd,F]
-            tap_pred = dec.sdf(
-                mlp_, torch.cat([fw_t, c.enc_tapw], -1), sdf_scale, leaky=mlp_leaky
-            )
+            tap_pred = decode_weighted(
+                mlp_, fd[None].expand((6,) + fd.shape), c.enc_tap, c.w_tap, c.enc_tapw,
+                dec.sdf, sdf_scale=sdf_scale, **dkw,
+            )  # [6,bd]
             g = torch.stack(
                 [
                     tap_pred[0] - tap_pred[3],
@@ -333,7 +373,24 @@ def make_mapping_fn(
             ) / (2 * num_grad_eps)
             gn = torch.sqrt(torch.sum(g * g, dim=-1) + 1e-20)
             eik = torch.sum(((gn - 1.0) ** 2) * c.vd) / eik_den
-            return sdf_loss + weight_e * eik, sdf_loss, eik
+            loss = sdf_loss + weight_e * eik
+            if color_on:
+                cf = gather(works[1])
+                cf = torch.where(c.valid[..., None], cf, torch.zeros_like(cf))
+                cpred = decode_weighted(mlps[1], cf, c.enc0, c.w0, c.encw0,
+                                        dec.regress_color, **dkw)
+                cdiff = torch.mean(torch.abs(cpred - c.color_lbl), dim=-1)
+                color_loss = torch.sum(cdiff * surface_mask * w_lbl) / torch.clamp(
+                    torch.sum(surface_mask * w_lbl), min=1.0
+                )
+                loss = loss + weight_i * color_loss
+            if sem_on:
+                logp = decode_weighted(mlps[-1], f, c.enc0, c.w0, c.encw0,
+                                       dec.sem_label_prob, **dkw)  # [bs,S]
+                nll = -torch.gather(logp, 1, sem_idx)[:, 0]
+                sem_loss = torch.sum(nll * sem_mask) / torch.clamp(torch.sum(sem_mask), min=1.0)
+                loss = loss + weight_s * sem_loss
+            return loss, sdf_loss, eik
 
         return loss_fn
 
@@ -345,92 +402,115 @@ def make_mapping_fn(
         tap_w_sum = torch.sum(c.w_tap, dim=0) * itf
         return nm.accumulate_certainty(st, tap_idx_d, tap_w_sum, None)
 
-    def adam_steps(loss_fn, work, mw, vw, mlp_ps, mlp_m, mlp_v, t_base, n_steps, mlp_lr):
-        """``n_steps`` autograd Adam steps on ``work`` and the MLP leaves,
-        step numbers continuing from ``t_base``. Returns the new
-        (work, mw, vw, mlp_ps, mlp_m, mlp_v, [sdf_loss, eik_loss])."""
-        nh = (len(mlp_ps) - 2) // 2
-        losses = torch.zeros(2, device=work.device)
-        work = work.detach()  # a new leaf: the caller's tensor stays grad-free
+    def mlps_of(leaves, sizes):
+        """The flat MLP leaves as one ``MLPParams`` per entry of ``sizes``
+        (each MLP's leaf count)."""
+        out, i = [], 0
+        for n in sizes:
+            ps, nh = leaves[i : i + n], (n - 2) // 2
+            out.append(dec.MLPParams(list(ps[:nh]), list(ps[nh : 2 * nh]), ps[2 * nh], ps[2 * nh + 1]))
+            i += n
+        return out
+
+    def adam_steps(loss_fn, works, mws, vws, mlp_ps, mlp_m, mlp_v, sizes, t_base, n_steps,
+                   mlp_lr):
+        """``n_steps`` autograd Adam steps on the slabs ``works`` and the MLP
+        leaves ``mlp_ps`` (``sizes`` leaves per MLP), step numbers
+        continuing from ``t_base``. Returns the new (works, mws, vws,
+        mlp_ps, mlp_m, mlp_v, [sdf_loss, eik_loss])."""
+        losses = torch.zeros(2, device=works[0].device)
+        # new leaves: the caller's tensors stay grad-free
+        works = [w.detach() for w in works]
+        nw = len(works)
         for i in range(n_steps):
             with torch.enable_grad():
-                leaves = [work.requires_grad_(True)] + [
+                leaves = [w.requires_grad_(True) for w in works] + [
                     p.requires_grad_(True) for p in mlp_ps
                 ]
-                m_params = dec.MLPParams(
-                    leaves[1 : 1 + nh], leaves[1 + nh : 1 + 2 * nh],
-                    leaves[-2], leaves[-1],
-                )
-                loss, sdf_l, eik_l = loss_fn(leaves[0], m_params)
+                loss, sdf_l, eik_l = loss_fn(leaves[:nw], mlps_of(leaves[nw:], sizes))
                 grads = torch.autograd.grad(loss, leaves)
             t = float(t_base + i + 1)
-            upd, mw, vw = _adam_update(grads[0], mw, vw, t, lr, adam_eps)
-            work = work.detach() + upd
+            new_w, new_mw, new_vw = [], [], []
+            for w, g, m, v in zip(works, grads[:nw], mws, vws):
+                upd, m, v = _adam_update(g, m, v, t, lr, adam_eps)
+                new_w.append(w.detach() + upd)
+                new_mw.append(m)
+                new_vw.append(v)
+            works, mws, vws = new_w, new_mw, new_vw
             new_ps, new_m, new_v = [], [], []
-            for p, g, m, v in zip(mlp_ps, grads[1:], mlp_m, mlp_v):
+            for p, g, m, v in zip(mlp_ps, grads[nw:], mlp_m, mlp_v):
                 u, m, v = _adam_update(g, m, v, t, mlp_lr, adam_eps)
                 new_ps.append(p.detach() + u)
                 new_m.append(m)
                 new_v.append(v)
             mlp_ps, mlp_m, mlp_v = new_ps, new_m, new_v
             losses = torch.stack([sdf_l.detach(), eik_l.detach()])
-        return work, mw, vw, mlp_ps, mlp_m, mlp_v, losses
+        return works, mws, vws, mlp_ps, mlp_m, mlp_v, losses
 
-    def mlp_of(mlp_ps):
-        nh = (len(mlp_ps) - 2) // 2
-        return dec.MLPParams(
-            mlp_ps[:nh], mlp_ps[nh : 2 * nh], mlp_ps[2 * nh], mlp_ps[2 * nh + 1]
-        )
+    def flat_leaves(mlps):
+        return [t.detach().clone() for m in mlps for t in m.tensors()], [
+            len(m.tensors()) for m in mlps
+        ]
 
-    def autograd_loop(loss_fn, params0, mlp, n_steps, mlp_lr):
-        """A fresh Adam (zero moments) for ``n_steps`` steps on ``params0``
-        and the MLP. Returns (params, mlp, losses)."""
-        mlp_ps = [t.detach().clone() for t in mlp.tensors()]
+    def autograd_loop(loss_fn, works0, mlps, n_steps, mlp_lr):
+        """A fresh Adam (zero moments) for ``n_steps`` steps on the slabs
+        ``works0`` and the MLPs. Returns (works, mlps, losses)."""
+        mlp_ps, sizes = flat_leaves(mlps)
         zeros = [torch.zeros_like(t) for t in mlp_ps]
-        params, _, _, mlp_ps, _, _, losses = adam_steps(
-            loss_fn, params0, torch.zeros_like(params0), torch.zeros_like(params0),
-            mlp_ps, zeros, list(zeros), 0, n_steps, mlp_lr,
+        works, _, _, mlp_ps, _, _, losses = adam_steps(
+            loss_fn, works0, [torch.zeros_like(w) for w in works0],
+            [torch.zeros_like(w) for w in works0], mlp_ps, zeros, list(zeros), sizes, 0,
+            n_steps, mlp_lr,
         )
-        return params, mlp_of(mlp_ps), losses
+        return works, mlps_of(mlp_ps, sizes), losses
 
-    def single_batch_body(map_state, mlp, pool, travel_dist, cur_ts, window,
+    def slabs_of(map_state):
+        """The trained feature slabs: geometric, and color with ``color_on``."""
+        return [map_state.geo_feats] + ([map_state.color_feats] if color_on else [])
+
+    def with_slabs(st, slabs):
+        if color_on:
+            return st._replace(geo_feats=slabs[0], color_feats=slabs[1])
+        return st._replace(geo_feats=slabs[0])
+
+    def single_batch_body(map_state, mlps, pool, travel_dist, cur_ts, window,
                           iter_count, mlp_lr_scale, generator, batch_draws):
         dev = pool.data.device
         cap = nm.map_capacity(map_state)
         draws = batch_draws[0] if batch_draws is not None else None
         c = build_cache(map_state, pool, travel_dist, cur_ts, window, generator, draws)
-        work0 = gather_rows(map_state.geo_feats, c.src_rows)  # [W,F]
+        works0 = [gather_rows(slab, c.src_rows) for slab in slabs_of(map_state)]  # [W,F]
         n_iters = torch.as_tensor(iter_count, device=dev).to(torch.int32)
         inner_n = torch.clamp(n_iters, max=R)
         mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
         if not dup_independent:
             # the autograd loop reads its step count on the host, once
-            rows, mlp_new, losses = autograd_loop(
-                make_loss_fn(c), work0, mlp, int(inner_n), mlp_lr
+            rows, mlps_new, losses = autograd_loop(
+                make_loss_fn(c), works0, mlps, int(inner_n), mlp_lr
             )
         else:
-            f0 = gather_rows_nd(work0, c.local_idx)
+            f0s = [gather_rows_nd(w, c.local_idx) for w in works0]
             reasons = pallas_ineligible_reasons(
                 color_on=color_on, sem_on=sem_on, weighted_first=weighted_first,
                 mlp_bf16=mlp_bf16, mlp_leaky=mlp_leaky, loss_type=loss_type,
-                feature_dim=feature_dim, n_hidden=len(mlp.weights),
+                feature_dim=feature_dim, n_hidden=len(mlps[0].weights),
             )
             if reasons:
                 warnings.warn(
                     "fused mapping kernel disabled for this config "
                     f"({', '.join(reasons)}); running the autograd loop",
                     RuntimeWarning,
-                    stacklevel=2,
+                    stacklevel=3,
                 )
-                f_new, mlp_new, losses = autograd_loop(
-                    make_loss_fn(c, expanded=True), f0, mlp, int(inner_n), mlp_lr
+                f_new, mlps_new, losses = autograd_loop(
+                    make_loss_fn(c, expanded=True), f0s, mlps, int(inner_n), mlp_lr
                 )
             else:
                 wsel = torch.abs(c.weight) * c.bvalid if loss_weight_on else c.bvalid
-                f_new, mlp_new, losses = map_loop(
-                    f0, c.w0.contiguous(), c.encw0.contiguous(),
+                f_geo, mlp_new, losses = map_loop(
+                    f0s[0], c.w0.contiguous(), c.encw0.contiguous(),
                     torch.sigmoid(c.label / sigma).contiguous(), wsel.contiguous(),
-                    c.w_tap.contiguous(), c.enc_tapw.contiguous(), c.vd.contiguous(), mlp,
+                    c.w_tap.contiguous(), c.enc_tapw.contiguous(), c.vd.contiguous(), mlps[0],
                     inner_n, R, mlp_lr,
                     1.0 / torch.clamp(torch.sum(c.bvalid), min=1.0),
                     1.0 / torch.clamp(torch.sum(c.vd), min=1.0),
@@ -438,26 +518,32 @@ def make_mapping_fn(
                     adam_eps=adam_eps, weight_e=weight_e, num_grad_eps=num_grad_eps,
                     layer_norm=layer_norm,
                 )
-            counts = c.run_lengths[:, None].to(torch.float32)
-            rows = work0 + _sorted_scatter_add(
-                f_new - f0, c.order, c.run_lengths
-            ) / torch.clamp(counts, min=1.0)
-        feats = map_state.geo_feats.clone()
-        feats[c.src_rows] = rows  # duplicates only at the sentinel row
-        feats[cap] = 0.0
+                f_new, mlps_new = [f_geo], [mlp_new]
+            counts = torch.clamp(c.run_lengths[:, None].to(torch.float32), min=1.0)
+            # each work row moves by the mean delta of its references
+            rows = [
+                w0 + _sorted_scatter_add(fn - f0, c.order, c.run_lengths) / counts
+                for w0, fn, f0 in zip(works0, f_new, f0s)
+            ]
+        slabs = []
+        for slab, r in zip(slabs_of(map_state), rows):
+            slab = slab.clone()
+            slab[c.src_rows] = r  # duplicates only at the sentinel row
+            slab[cap] = 0.0
+            slabs.append(slab)
         st = accumulate_cert(map_state, c, inner_n)
-        return st._replace(geo_feats=feats), mlp_new, losses
+        return with_slabs(st, slabs), mlps_new, losses
 
-    def general_body(map_state, mlp, pool, travel_dist, cur_ts, window,
+    def general_body(map_state, mlps, pool, travel_dist, cur_ts, window,
                      iter_count, mlp_lr_scale, generator, batch_draws):
         dev = pool.data.device
         cap = nm.map_capacity(map_state)
         n_iters = int(iter_count)  # host read: sizes the outer loop
         n_outer = (n_iters + R - 1) // R
-        feats = map_state.geo_feats.clone()
-        m_slab = torch.zeros_like(feats)
-        v_slab = torch.zeros_like(feats)
-        mlp_ps = [t.detach().clone() for t in mlp.tensors()]
+        slabs = [slab.clone() for slab in slabs_of(map_state)]
+        m_slabs = [torch.zeros_like(slab) for slab in slabs]
+        v_slabs = [torch.zeros_like(slab) for slab in slabs]
+        mlp_ps, sizes = flat_leaves(mlps)
         mlp_m = [torch.zeros_like(t) for t in mlp_ps]
         mlp_v = [torch.zeros_like(t) for t in mlp_ps]
         mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
@@ -466,34 +552,38 @@ def make_mapping_fn(
         for o in range(n_outer):
             draws = batch_draws[o] if batch_draws is not None else None
             c = build_cache(st, pool, travel_dist, cur_ts, window, generator, draws)
-            work = gather_rows(feats, c.src_rows)
+            works = [gather_rows(slab, c.src_rows) for slab in slabs]
             if o == 0:  # moments start at zero in every mapping call
-                mw, vw = torch.zeros_like(work), torch.zeros_like(work)
+                mws = [torch.zeros_like(w) for w in works]
+                vws = [torch.zeros_like(w) for w in works]
             else:
-                mw, vw = gather_rows(m_slab, c.src_rows), gather_rows(v_slab, c.src_rows)
+                mws = [gather_rows(m, c.src_rows) for m in m_slabs]
+                vws = [gather_rows(v, c.src_rows) for v in v_slabs]
             inner_n = min(R, n_iters - o * R)
             # frame 0 keeps the rule of the fused kernel at saturated
             # samples (make_sdf_loss; ROADMAP C)
-            work, mw, vw, mlp_ps, mlp_m, mlp_v, losses = adam_steps(
-                make_loss_fn(c, saturated_grad=False), work, mw, vw, mlp_ps, mlp_m, mlp_v,
-                o * R, inner_n, mlp_lr,
+            works, mws, vws, mlp_ps, mlp_m, mlp_v, losses = adam_steps(
+                make_loss_fn(c, saturated_grad=False), works, mws, vws, mlp_ps, mlp_m, mlp_v,
+                sizes, o * R, inner_n, mlp_lr,
             )
             # write back (duplicate src_rows only at the zeroed sentinel)
-            feats[c.src_rows] = work
-            feats[cap] = 0.0
+            for slab, w in zip(slabs, works):
+                slab[c.src_rows] = w
+                slab[cap] = 0.0
             if o + 1 < n_outer:
-                m_slab[c.src_rows] = mw
-                v_slab[c.src_rows] = vw
-                m_slab[cap] = 0.0
-                v_slab[cap] = 0.0
+                for dst, src in zip(m_slabs + v_slabs, mws + vws):
+                    dst[c.src_rows] = src
+                    dst[cap] = 0.0
             st = accumulate_cert(st, c, inner_n)
-        return st._replace(geo_feats=feats), mlp_of(mlp_ps), losses
+        return with_slabs(st, slabs), mlps_of(mlp_ps, sizes), losses
 
     body = single_batch_body if max_outer == 1 else general_body
 
     def mapping(
         map_state: nm.NeuralMapState,
         mlp: dec.MLPParams,
+        color_mlp: dec.MLPParams,
+        sem_mlp: dec.MLPParams,
         pool: ReplayPool,
         travel_dist,
         cur_ts,
@@ -503,9 +593,14 @@ def make_mapping_fn(
         generator: Optional[torch.Generator] = None,
         batch_draws: Optional[List] = None,
     ):
-        return body(map_state, mlp, pool, travel_dist, cur_ts, window,
-                    iter_count, mlp_lr_scale, generator, batch_draws)
+        trained = [mlp] + [color_mlp] * color_on + [sem_mlp] * sem_on
+        st, new, losses = body(map_state, trained, pool, travel_dist, cur_ts, window,
+                               iter_count, mlp_lr_scale, generator, batch_draws)
+        color_out = new[1] if color_on else color_mlp
+        sem_out = new[-1] if sem_on else sem_mlp
+        return st, new[0], color_out, sem_out, losses
 
+    mapping.build_cache = build_cache
     return mapping
 
 

@@ -110,9 +110,13 @@ def append_samples(
     is_new: torch.Tensor,  # [M] bool
     uniform: Optional[torch.Tensor] = None,  # [M+1] U(0,1) draws
     generator: Optional[torch.Generator] = None,
+    color: Optional[torch.Tensor] = None,  # [M, C] color labels
+    sem: Optional[torch.Tensor] = None,  # [M] class labels
 ) -> ReplayPool:
     """Append one frame's masked samples; when the frame does not fit,
-    samples evict uniform-random old slots.
+    samples evict uniform-random old slots. The class and color columns are
+    written only when ``sem`` and ``color`` are given (else they keep -1
+    and 0, as ``init_pool`` made them).
 
     Duplicate slots arise from two sources: a masked row backfilled with the
     next valid row's slot, and two evicting rows drawing the same slot. As
@@ -134,6 +138,10 @@ def append_samples(
     vals = torch.stack([coords[:, 0], coords[:, 1], coords[:, 2], sdf, weight, ts], 1)
     data = pool.data.clone()
     scatter_set(data[:, : _TS + 1], slot, vals)
+    if sem is not None:
+        scatter_set(data[:, _SEM], slot, sem.to(torch.float32))
+    if color is not None:
+        scatter_set(data[:, BASE_COLS : BASE_COLS + color.shape[1]], slot, color)
     valid = scatter_set(pool.valid.clone(), slot, torch.ones_like(mask))
 
     nb = pool.new_buf.shape[0]

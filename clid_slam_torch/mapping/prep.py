@@ -1,7 +1,8 @@
 """Per-frame map preparation (port of clid_slam_tpu/mapping/prep.py):
 local raw-map update, ray sampling with region-specific labels, neural
 point insertion from near-surface samples, replay-pool window filter and
-append, and the novelty flags for adaptive iterations."""
+append, and the novelty flags for adaptive iterations. Per-point colors and
+class labels, when given, ride with the samples into the pool."""
 
 from __future__ import annotations
 
@@ -57,7 +58,9 @@ def make_prep_fn(
 ):
     """Returns ``prep(map_state, local_map, pool, points, mask, pose,
     travel_dist, frame_id, diff_travel_dist_local, generator=None,
-    sample_draws=None, append_uniform=None) -> PrepResult``. The novelty
+    sample_draws=None, append_uniform=None, colors=None, sem_labels=None)
+    -> PrepResult``; ``colors`` [P, C] and ``sem_labels`` [P] label the
+    points. The novelty
     gate reads the own-cell certainty when ``novelty_mode == "fast"`` and
     the distance-checked 1-cell maximum otherwise."""
     novelty = make_novelty_fn(
@@ -80,6 +83,8 @@ def make_prep_fn(
         generator: Optional[torch.Generator] = None,
         sample_draws=None,
         append_uniform: Optional[torch.Tensor] = None,
+        colors: Optional[torch.Tensor] = None,
+        sem_labels: Optional[torch.Tensor] = None,
     ) -> PrepResult:
         origin = pose[:3, 3]
         world_pts = transform_points(points, pose)
@@ -107,6 +112,8 @@ def make_prep_fn(
             free_behind_weight=free_behind_weight,
             generator=generator,
             draws=sample_draws,
+            colors=colors,
+            sem_labels=sem_labels,
         )
         coords_global = transform_points(batch.coords, pose)
 
@@ -136,6 +143,8 @@ def make_prep_fn(
         pool = pl.append_samples(
             pool, coords_global, batch.sdf_label, batch.weight, batch.mask,
             frame_id, is_new, uniform=append_uniform, generator=generator,
+            color=batch.color if colors is not None else None,
+            sem=batch.sem if sem_labels is not None else None,
         )
         return PrepResult(
             map_state,

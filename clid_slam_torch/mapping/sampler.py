@@ -3,7 +3,10 @@ clid_slam_tpu/mapping/sampler.py, CLID mode).
 
 Per ray: 1 endpoint + n_surf Gaussian near-surface + n_front/n_behind
 uniform freespace samples, in part-major [S*N] order; near-surface labels
-come from the raw-point local map. ``draws`` = (normal [S_s,N], u_front
+come from the raw-point local map. With per-ray ``colors`` and
+``sem_labels`` the endpoint and near-surface samples carry the ray's color
+and class, freespace samples color 0 and class 0; without labels the class
+is -1 everywhere. ``draws`` = (normal [S_s,N], u_front
 [F_n,N], u_behind [B_n,N]) injects the random numbers; otherwise they come
 from ``generator``.
 """
@@ -23,6 +26,8 @@ class SampleBatch(NamedTuple):
     sdf_label: torch.Tensor  # [N*S]
     weight: torch.Tensor  # [N*S] (sign = surface(+)/freespace(-))
     mask: torch.Tensor  # [N*S] bool
+    color: torch.Tensor  # [N*S, C] (C = 1 without colors)
+    sem: torch.Tensor  # [N*S] i32 (-1 without labels)
 
 
 def sample_rays(
@@ -49,6 +54,8 @@ def sample_rays(
     free_behind_weight: float = 1.0,
     generator: Optional[torch.Generator] = None,
     draws=None,
+    colors: Optional[torch.Tensor] = None,  # [N, C]
+    sem_labels: Optional[torch.Tensor] = None,  # [N] i32
 ) -> SampleBatch:
     n = points.shape[0]
     dev = points.device
@@ -144,9 +151,21 @@ def sample_rays(
         valid[surf_lo:surf_hi] = valid[surf_lo:surf_hi] & est_valid.reshape(
             surface_sample_n, n
         )
+    if colors is not None:
+        color_s = torch.zeros((s_total, n, colors.shape[1]), device=dev)
+        color_s[:surf_hi] = colors.to(torch.float32)[None]
+    else:
+        color_s = torch.zeros((s_total, n, 1), device=dev)
+    if sem_labels is not None:
+        sem_s = torch.zeros((s_total, n), dtype=torch.int32, device=dev)
+        sem_s[:surf_hi] = sem_labels.to(torch.int32)[None]
+    else:
+        sem_s = torch.full((s_total, n), -1, dtype=torch.int32, device=dev)
     return SampleBatch(
         coords=coords.reshape(-1, 3),
         sdf_label=sdf_label.reshape(-1),
         weight=weight.reshape(-1),
         mask=valid.reshape(-1),
+        color=color_s.reshape(s_total * n, -1),
+        sem=sem_s.reshape(-1),
     )

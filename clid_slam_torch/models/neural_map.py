@@ -192,7 +192,7 @@ def insert_points(
 
 
 class QueryResult(NamedTuple):
-    feature: torch.Tensor  # [N, F+P] weighted feature ‖ relative vector
+    feature: torch.Tensor  # [N, F+P] weighted feature ‖ relative vector ([N, k, F+P] per neighbour)
     weights: torch.Tensor  # [N, k]
     knn_idx: torch.Tensor  # [N, k] point indices (-1 invalid)
     nn_count: torch.Tensor  # [N]
@@ -267,12 +267,18 @@ def query_feature(
     time_filtering: bool = False,
     encode_vecs=None,
     layer_norm: bool = False,
+    weighted_first: bool = True,
 ) -> QueryResult:
-    """kNN feature interpolation (weighted_first mode,
-    model/neural_points.py:553-769). Differentiable wrt ``points`` and
-    ``state.geo_feats``; both backward passes sum in a fixed order (the
-    lane gathers' targets are distinct, the feature rows' are summed by
-    ``ops/gather.py:gather_rows_nd``), so a card run repeats bit for bit."""
+    """kNN feature interpolation (model/neural_points.py:553-769).
+    Differentiable wrt ``points`` and ``state.geo_feats``; both backward
+    passes sum in a fixed order (the lane gathers' targets are distinct,
+    the feature rows' are summed by ``ops/gather.py:gather_rows_nd``), so a
+    card run repeats bit for bit.
+
+    ``weighted_first=False`` (decode-then-weight) returns the per-neighbour
+    features [N, k, F+P] in place of their IDW-weighted sum; the caller
+    decodes each neighbour and weights the decoded values with
+    ``weights``."""
     cap = map_capacity(state)
     d2, h, pvalid, mir = neighborhood_probe(
         state, points, nb_offs, resolution, max_valid_dist2,
@@ -302,8 +308,27 @@ def query_feature(
     cert = torch.where(valid, state.certainty[safe], torch.zeros_like(w))
     certainty_q = torch.sum(cert * w, dim=1)
     feat_vec = torch.cat([feats, vecs], dim=-1)
-    feature = torch.sum(feat_vec * w[..., None], dim=1)
+    feature = torch.sum(feat_vec * w[..., None], dim=1) if weighted_first else feat_vec
     return QueryResult(feature, w, knn_idx, nn_count, certainty_q)
+
+
+def query_color_feature(
+    state: NeuralMapState, qres: QueryResult, feature_dim: int
+) -> torch.Tensor:
+    """Color-feature interpolation on the geometric query's neighbours and
+    weights (``qres``), from the second feature slab ``color_feats``, with
+    the same relative-vector suffix: [N, Fc+P], or [N, k, Fc+P] when the
+    query ran decode-then-weight. The slab's rows go through
+    ``gather_rows_nd`` (a fixed-order backward wrt ``color_feats``)."""
+    cap = map_capacity(state)
+    valid = qres.knn_idx >= 0
+    safe = torch.where(valid, qres.knn_idx, torch.full_like(qres.knn_idx, cap))
+    cf = gather_rows_nd(state.color_feats, safe)
+    cf = torch.where(valid[..., None], cf, torch.zeros_like(cf))
+    if qres.feature.dim() == 3:  # decode-then-weight
+        return torch.cat([cf, qres.feature[..., feature_dim:]], dim=-1)
+    cw = torch.sum(cf * qres.weights[..., None], dim=1)
+    return torch.cat([cw, qres.feature[:, feature_dim:]], dim=-1)
 
 
 def accumulate_certainty(

@@ -12,6 +12,13 @@ Device loops:
   iteration through ``make_h_reduce_fn``) share one Python loop with the
   JAX while-loop's exit rules (convergence, stagnation, low validity). It
   reads the exit flag on the host once per iteration.
+
+Both measurement reductions decode weighted-first (the IDW-weighted
+feature decoded once) or, with ``weighted_first=False``, decode each
+neighbour and take the weighted mean; a point then also needs a weighted
+SDF standard deviation under ``max_sdf_std``. The std is read off the
+graph (``_decoded_mean_std``), as the JAX package's is an auxiliary output
+that its ``jax.grad`` does not differentiate.
 """
 
 from __future__ import annotations
@@ -175,6 +182,16 @@ def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, *, max_iteration, ter
     return rot, pos, rest, P_new, ok, torch.tensor(i, dtype=torch.int32, device=dev)
 
 
+def _decoded_mean_std(pred_k, w):
+    """Decode-then-weight: the IDW-weighted mean of the per-neighbour SDFs
+    [N, k] and, detached, their weighted standard deviation (detached: the
+    square root's gradient at a zero variance is not finite)."""
+    pred = torch.sum(pred_k * w, dim=1)
+    pk, pm, wd = pred_k.detach(), pred.detach(), w.detach()
+    var = torch.sum(wd * (pk - pm[:, None]) ** 2, dim=1)
+    return pred, torch.sqrt(torch.clamp(var, min=0.0))
+
+
 def _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,
              stagnation_iter) -> dict:
     """``_iterated_update``'s exit rules from an update factory's arguments."""
@@ -202,8 +219,11 @@ def make_cached_update_fn(
     eps: float = 0.001,
     min_valid_ratio: float = 0.2,
     mlp_leaky: bool = False,
+    mlp_bf16: bool = False,
     encode_vecs=None,
+    weighted_first: bool = True,
     layer_norm: bool = False,
+    max_sdf_std: float = float("inf"),
     stagnation_iter: int = 10,
     info_scale: float = 1000.0,
 ):
@@ -259,10 +279,14 @@ def make_cached_update_fn(
                 kvecs = encode_vecs(vecs) if encode_vecs is not None else vecs
                 kvecs = torch.where(kvalid[..., None], kvecs, torch.zeros_like(kvecs))
                 w = nm.idw_weights(cd2, kvalid, nn_count)
-                feature = torch.sum(
-                    torch.cat([cand_feat, kvecs], -1) * w[..., None], dim=1
-                )
-                pred = dec.sdf(mlp, feature, sdf_scale, leaky=mlp_leaky)
+                feat_vec = torch.cat([cand_feat, kvecs], -1)
+                if weighted_first:
+                    feature = torch.sum(feat_vec * w[..., None], dim=1)
+                    pred = dec.sdf(mlp, feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
+                else:
+                    pred, sdf_std = _decoded_mean_std(
+                        dec.sdf(mlp, feat_vec, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16), w
+                    )
                 (grad,) = torch.autograd.grad(pred.sum(), pc)
             grad_norm = torch.linalg.norm(grad, dim=-1)
             valid = (
@@ -271,6 +295,8 @@ def make_cached_update_fn(
                 & (grad_norm > min_grad_norm)
                 & (grad_norm < max_grad_norm)
             )
+            if not weighted_first:
+                valid = valid & (sdf_std < max_sdf_std)
             return _normal_equations(points_imu, rot, grad, pred.detach(), valid, info_scale)
 
         return _iterated_update(h_reduce_cached, mask, rot0, pos0, rest0, P, **loop_kw)
@@ -294,12 +320,15 @@ def make_h_reduce_fn(
     max_grad_norm: float,
     min_nn_count: int,
     mlp_leaky: bool = False,
+    mlp_bf16: bool = False,
     encode_vecs=None,
+    weighted_first: bool = True,
     layer_norm: bool = False,
+    max_sdf_std: float = float("inf"),
     info_scale: float = 1000.0,
 ):
     """The measurement reduction with the map queried at the given pose
-    (``query_feature`` over the whole neighbourhood, weighted_first).
+    (``query_feature`` over the whole neighbourhood).
     Returns h_reduce(map_state, mlp, points_imu[N,3], mask[N], R[3,3], t[3],
     travel_dist, cur_ts, window) -> (S6[6,6], b6[6], n_valid)."""
     offs_t = torch.as_tensor(nb_offs)
@@ -311,9 +340,11 @@ def make_h_reduce_fn(
             q = nm.query_feature(
                 map_state, pc, offs_t.to(pc.device), resolution, max_valid_dist2, knn_k,
                 travel_dist, cur_ts, window, True, encode_vecs=encode_vecs,
-                layer_norm=layer_norm,
+                layer_norm=layer_norm, weighted_first=weighted_first,
             )
-            pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky)
+            pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
+            if not weighted_first:
+                pred, sdf_std = _decoded_mean_std(pred, q.weights)
             (grad,) = torch.autograd.grad(pred.sum(), pc)
         grad_norm = torch.linalg.norm(grad, dim=-1)
         valid = (
@@ -322,6 +353,8 @@ def make_h_reduce_fn(
             & (grad_norm > min_grad_norm)
             & (grad_norm < max_grad_norm)
         )
+        if not weighted_first:
+            valid = valid & (sdf_std < max_sdf_std)
         return _normal_equations(points_imu, R, grad, pred.detach(), valid, info_scale)
 
     return h_reduce
@@ -343,8 +376,11 @@ def make_update_iterated_fn(
     eps: float = 0.001,
     min_valid_ratio: float = 0.2,
     mlp_leaky: bool = False,
+    mlp_bf16: bool = False,
     encode_vecs=None,
+    weighted_first: bool = True,
     layer_norm: bool = False,
+    max_sdf_std: float = float("inf"),
     stagnation_iter: int = 10,
     info_scale: float = 1000.0,
 ):
@@ -355,8 +391,9 @@ def make_update_iterated_fn(
         knn_k=knn_k, nb_offs=nb_offs, resolution=resolution,
         max_valid_dist2=max_valid_dist2, sdf_scale=sdf_scale,
         min_grad_norm=min_grad_norm, max_grad_norm=max_grad_norm,
-        min_nn_count=min_nn_count, mlp_leaky=mlp_leaky, encode_vecs=encode_vecs,
-        layer_norm=layer_norm, info_scale=info_scale,
+        min_nn_count=min_nn_count, mlp_leaky=mlp_leaky, mlp_bf16=mlp_bf16,
+        encode_vecs=encode_vecs, weighted_first=weighted_first, layer_norm=layer_norm,
+        max_sdf_std=max_sdf_std, info_scale=info_scale,
     )
     loop_kw = _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,
                        stagnation_iter)

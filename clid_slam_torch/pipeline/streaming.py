@@ -15,6 +15,11 @@ adjustment refines the last ``ba_frame`` poses and the map's features, and
 with ``prune_map_on`` the map is pruned and rehashed every
 ``prune_freq_frame`` frames. ``save_checkpoint``/``load_checkpoint`` write
 and read the whole state (the JAX package's file, plus the generator).
+Every option of the JAX frame step runs, decode-then-weight
+(``weighted_first=False``), bf16 decoding (``mlp_bf16``) and the color and
+semantic heads (``color_on``, ``semantic_on``) included; as in the JAX
+frame step, the scan carries no per-point colors or classes, so the pool's
+labels stay 0 and -1.
 
 Host reads inside a frame: the iterated update reads its exit flag once
 per iteration, frame 0 reads its iteration count to size the outer
@@ -95,22 +100,6 @@ class StreamState:
         ]
 
 
-def check_supported(cfg: Config) -> None:
-    """The options the port runs so far; the others raise."""
-    missing = [
-        name for name, on in (
-            ("color_on", cfg.color_on),
-            ("semantic_on", cfg.semantic_on),
-            ("mlp_bf16", cfg.mlp_bf16),
-            ("weighted_first=False", not cfg.weighted_first),
-        ) if on
-    ]
-    if missing:
-        raise NotImplementedError(
-            f"clid_slam_torch does not port these options yet: {', '.join(missing)}"
-        )
-
-
 def _orthonormalize(R):
     """Project an almost-rotation back to SO(3) (Gram-Schmidt)."""
     a = R[:, 0] / torch.linalg.norm(R[:, 0])
@@ -127,13 +116,82 @@ def _pose(rot, pos):
     return T
 
 
+def _max_valid_dist2(cfg: Config) -> float:
+    return 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
+
+
+def mapping_kwargs(cfg: Config, nb_offs, encode_vecs) -> dict:
+    """``mapper.make_mapping_fn``'s arguments for ``cfg``, as the frame step
+    builds frame 0's general body (tracked frames add ``max_outer=1``)."""
+    return dict(
+        feature_dim=cfg.feature_dim,
+        knn_k=cfg.query_nn_k,
+        nb_offs=nb_offs,
+        resolution=cfg.voxel_size_m,
+        max_valid_dist2=_max_valid_dist2(cfg),
+        sdf_scale=cfg.sdf_scale,
+        sigma=cfg.sdf_scale,
+        loss_type=cfg.main_loss_type,
+        bs=cfg.bs,
+        bs_new=cfg.bs_new_sample,
+        gradient_decimation=cfg.gradient_decimation,
+        num_grad_eps=cfg.num_grad_eps,
+        weight_e=cfg.weight_e,
+        loss_weight_on=cfg.loss_weight_on,
+        lr=cfg.lr,
+        adam_eps=cfg.adam_eps,
+        mlp_leaky=cfg.mlp_leaky_relu,
+        mlp_bf16=cfg.mlp_bf16,
+        color_on=cfg.color_on,
+        sem_on=cfg.semantic_on,
+        weight_i=cfg.weight_i,
+        weight_s=cfg.weight_s,
+        surface_sample_range_m=cfg.surface_sample_range_m,
+        encode_vecs=encode_vecs,
+        weighted_first=cfg.weighted_first,
+        layer_norm=cfg.layer_norm_on,
+        resample_every=cfg.map_resample_every,
+    )
+
+
+def prep_kwargs(cfg: Config) -> dict:
+    """``prep.make_prep_fn``'s arguments for ``cfg`` but ``filter_pool_now``."""
+    return dict(
+        resolution=cfg.voxel_size_m,
+        local_resolution=cfg.local_voxel_size_m,
+        local_map_size=cfg.local_map_size,
+        window_radius=cfg.window_radius,
+        surface_sample_range_m=cfg.surface_sample_range_m,
+        surface_sample_n=cfg.surface_sample_n,
+        free_front_n=cfg.free_front_n,
+        free_behind_n=cfg.free_behind_n,
+        free_sample_begin_ratio=cfg.free_sample_begin_ratio,
+        free_sample_end_dist_m=cfg.free_sample_end_dist_m,
+        max_range=cfg.max_range,
+        dist_weight_on=cfg.dist_weight_on,
+        dist_weight_scale=cfg.dist_weight_scale,
+        map_surface_ratio=cfg.map_surface_ratio,
+        from_sample_points=cfg.from_sample_points,
+        new_certainty_thre=cfg.new_certainty_thre,
+        novelty_on=cfg.bs_new_sample > 0,
+        novelty_mode=cfg.novelty_mode,
+        pin_mode=cfg.use_pin_mapper,
+        behind_dropoff_on=cfg.behind_dropoff_on,
+        incidence_label_on=cfg.incidence_label_on,
+        incidence_min_factor=cfg.incidence_min_factor,
+        incidence_degenerate_factor=cfg.incidence_degenerate_factor,
+        free_behind_weight=cfg.resolved_free_behind_weight(),
+    )
+
+
 def make_frame_step(cfg: Config, nb_offs, encode_vecs):
     """The four frame-step variants keyed by (track, filter_pool_now):
     step(state, frame_id, points, pmask, point_ts, imu_rows, imu_count,
     crop_max_range, iters_base, mlp_lr_scale, allow_restart) -> (state,
     insert_dropped, filtered); ``filtered`` is None or the [2] counts of
     points the map trains on before and after the dynamic filter."""
-    max_valid_dist2 = 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
+    max_valid_dist2 = _max_valid_dist2(cfg)
+    max_sdf_std = cfg.surface_sample_range_m * cfg.max_sdf_std_ratio
     S = cfg.max_source_points
     window = cfg.diff_travel_dist_local
     n_cand = cfg.track_n_cand or max(16, cfg.query_nn_k * 2)
@@ -155,33 +213,15 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
         term_thre_deg=cfg.reg_term_thre_deg,
         term_thre_m=cfg.reg_term_thre_m,
         mlp_leaky=cfg.mlp_leaky_relu,
+        mlp_bf16=cfg.mlp_bf16,
         encode_vecs=encode_vecs,
+        weighted_first=cfg.weighted_first,
         layer_norm=cfg.layer_norm_on,
+        max_sdf_std=max_sdf_std,
         stagnation_iter=cfg.stagnation_iter,
         info_scale=cfg.tracker_info_scale,
     )
-    map_kw = dict(
-        feature_dim=cfg.feature_dim,
-        knn_k=cfg.query_nn_k,
-        nb_offs=nb_offs,
-        resolution=cfg.voxel_size_m,
-        max_valid_dist2=max_valid_dist2,
-        sdf_scale=cfg.sdf_scale,
-        sigma=cfg.sdf_scale,
-        loss_type=cfg.main_loss_type,
-        bs=cfg.bs,
-        bs_new=cfg.bs_new_sample,
-        gradient_decimation=cfg.gradient_decimation,
-        num_grad_eps=cfg.num_grad_eps,
-        weight_e=cfg.weight_e,
-        loss_weight_on=cfg.loss_weight_on,
-        lr=cfg.lr,
-        adam_eps=cfg.adam_eps,
-        mlp_leaky=cfg.mlp_leaky_relu,
-        encode_vecs=encode_vecs,
-        layer_norm=cfg.layer_norm_on,
-        resample_every=cfg.map_resample_every,
-    )
+    map_kw = mapping_kwargs(cfg, nb_offs, encode_vecs)
     mapping_body = mp.make_mapping_fn(**map_kw)
     mapping_body_fast = mp.make_mapping_fn(
         **dict(
@@ -192,34 +232,7 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
         )
     )
     prep_bodies = {
-        fp: prp.make_prep_fn(
-            resolution=cfg.voxel_size_m,
-            local_resolution=cfg.local_voxel_size_m,
-            local_map_size=cfg.local_map_size,
-            window_radius=cfg.window_radius,
-            surface_sample_range_m=cfg.surface_sample_range_m,
-            surface_sample_n=cfg.surface_sample_n,
-            free_front_n=cfg.free_front_n,
-            free_behind_n=cfg.free_behind_n,
-            free_sample_begin_ratio=cfg.free_sample_begin_ratio,
-            free_sample_end_dist_m=cfg.free_sample_end_dist_m,
-            max_range=cfg.max_range,
-            dist_weight_on=cfg.dist_weight_on,
-            dist_weight_scale=cfg.dist_weight_scale,
-            map_surface_ratio=cfg.map_surface_ratio,
-            from_sample_points=cfg.from_sample_points,
-            new_certainty_thre=cfg.new_certainty_thre,
-            novelty_on=cfg.bs_new_sample > 0,
-            novelty_mode=cfg.novelty_mode,
-            filter_pool_now=fp,
-            pin_mode=cfg.use_pin_mapper,
-            behind_dropoff_on=cfg.behind_dropoff_on,
-            incidence_label_on=cfg.incidence_label_on,
-            incidence_min_factor=cfg.incidence_min_factor,
-            incidence_degenerate_factor=cfg.incidence_degenerate_factor,
-            free_behind_weight=cfg.resolved_free_behind_weight(),
-        )
-        for fp in (False, True)
+        fp: prp.make_prep_fn(filter_pool_now=fp, **prep_kwargs(cfg)) for fp in (False, True)
     }
     dyn_filter = None
     if cfg.dynamic_filter_on:
@@ -233,6 +246,7 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             certainty_thre=cfg.dynamic_certainty_thre,
             sdf_ratio_thre=cfg.dynamic_sdf_ratio_thre,
             mlp_leaky=cfg.mlp_leaky_relu,
+            mlp_bf16=cfg.mlp_bf16,
             encode_vecs=encode_vecs,
         )
 
@@ -380,10 +394,10 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
 
             map_fn = mapping_body_fast if track else mapping_body
             with record_function("frame.map"):
-                map_state, mlp, loss2 = map_fn(
-                    res.map_state, state.mlp, res.pool, travel_dist, frame_id,
-                    window, iters, mlp_lr_scale, generator=state.key,
-                    batch_draws=draws.get("batches"),
+                map_state, mlp, color_mlp, sem_mlp, loss2 = map_fn(
+                    res.map_state, state.mlp, state.color_mlp, state.sem_mlp, res.pool,
+                    travel_dist, frame_id, window, iters, mlp_lr_scale,
+                    generator=state.key, batch_draws=draws.get("batches"),
                 )
             losses = state.losses.clone()
             losses[frame_id] = loss2
@@ -394,7 +408,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                 lose_track=lose_track, consec_lose=consec_lose,
                 stop_count=stop_count, stop_status=stop_status, failed=failed,
                 map_state=map_state, local_map=res.local_map, pool=res.pool,
-                mlp=mlp, losses=losses, track_iters=track_iters,
+                mlp=mlp, color_mlp=color_mlp, sem_mlp=sem_mlp, losses=losses,
+                track_iters=track_iters,
             )
             return new_state, res.insert_dropped, filtered
 
@@ -414,7 +429,7 @@ def make_ba_step(cfg: Config, nb_offs, encode_vecs):
         knn_k=cfg.query_nn_k,
         nb_offs=nb_offs,
         resolution=cfg.voxel_size_m,
-        max_valid_dist2=3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2,
+        max_valid_dist2=_max_valid_dist2(cfg),
         sdf_scale=cfg.sdf_scale,
         window_size=w,
         ba_bs=cfg.ba_bs,
@@ -422,6 +437,7 @@ def make_ba_step(cfg: Config, nb_offs, encode_vecs):
         lr_map=cfg.lr,
         adam_eps=cfg.adam_eps,
         mlp_leaky=cfg.mlp_leaky_relu,
+        mlp_bf16=cfg.mlp_bf16,
         encode_vecs=encode_vecs,
     )
 
@@ -449,7 +465,6 @@ class StreamingSlam:
     CUDA card; pass ``device="cpu"`` to run on the CPU."""
 
     def __init__(self, cfg: Config, total_frames: int = 1024, device=None):
-        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.total_frames = total_frames
@@ -494,7 +509,8 @@ class StreamingSlam:
             max(cfg.color_channel, 1), cfg.mlp_bias_on,
         )
         sem_mlp = dec.init_mlp(
-            gen, d_in, cfg.sem_mlp_hidden_dim, cfg.sem_mlp_level, 1, cfg.mlp_bias_on
+            gen, d_in, cfg.sem_mlp_hidden_dim, cfg.sem_mlp_level,
+            cfg.sem_class_count if cfg.semantic_on else 1, cfg.mlp_bias_on,
         )
         P = np.eye(18, dtype=np.float32)
         P[9:12, 9:12] *= 1e-4
@@ -522,7 +538,8 @@ class StreamingSlam:
             stop_status=torch.zeros((), dtype=torch.bool, device=dev),
             failed=torch.zeros((), dtype=torch.bool, device=dev),
             map_state=nm.init_map(
-                cfg.map_capacity, cfg.map_hash_size, cfg.feature_dim, 1, device=dev
+                cfg.map_capacity, cfg.map_hash_size, cfg.feature_dim,
+                cfg.feature_dim if cfg.color_on else 1, device=dev,
             ),
             local_map=lm.init_local_map(
                 cfg.local_map_capacity, cfg.local_map_hash_size, device=dev

@@ -3,7 +3,8 @@
 the CPU (the pattern of tests/test_streaming.py:208, also with the
 dynamic filter and bundle adjustment on, whose draws come from the saved
 generator); a checkpoint written by the JAX package loads into the port
-array by array and tracks on; a file of another config is refused."""
+array by array and tracks on, also with the color and semantic heads'
+wider leaves; a file of another config is refused."""
 
 import numpy as np
 import jax
@@ -71,7 +72,32 @@ def test_jax_checkpoint_loads_into_the_port(seq, tmp_path):
     """The JAX package's file (no generator state) carries over leaf by
     leaf; the port then tracks two more frames (its draws differ from the
     JAX run's from here, so only the outcome is checked)."""
-    jcfg = tiny_config()
+    _load_jax_checkpoint(seq, tmp_path)
+
+
+def test_jax_color_semantic_checkpoint_loads_into_the_port(seq, tmp_path):
+    """As above with the color and semantic heads on: the color slab of
+    feature_dim columns, the color MLP and the 20-class semantic MLP carry
+    over leaf by leaf, and the port's own file of that state (written
+    after the load) reads back bit for bit."""
+    port = _load_jax_checkpoint(
+        seq, tmp_path, color_on=True, color_channel=1, semantic_on=True, sem_class_count=20
+    )
+    assert port.state.map_state.color_feats.shape[1] == 8
+    assert port.state.sem_mlp.w_out.shape[1] == 20
+    ckpt = str(tmp_path / "port_ckpt.npz")
+    port.save_checkpoint(ckpt)
+    again = _boot(port.cfg, seq)
+    again.load_checkpoint(ckpt)
+    for x, y in zip(port.state.leaves(), again.state.leaves()):
+        if isinstance(x, torch.Generator):
+            assert torch.equal(x.get_state(), y.get_state())
+        else:
+            assert torch.equal(x, y)
+
+
+def _load_jax_checkpoint(seq, tmp_path, **options):
+    jcfg = tiny_config(**options)
     s = JaxSlam(jcfg, total_frames=14)
     _seed(s, seq)
     for i in range(3):
@@ -93,6 +119,7 @@ def test_jax_checkpoint_loads_into_the_port(seq, tmp_path):
     assert not out["failed"] and np.all(out["track_iters"][3:] > 0)
     m = tmetrics.absolute_error(out["odom_poses"], seq.poses[:5], align=False)
     assert m["ate_rmse_m"] < 0.2, m  # tests/test_streaming.py's gate
+    return port
 
 
 def test_checkpoint_of_another_config_is_refused(seq, tmp_path):

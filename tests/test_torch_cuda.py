@@ -745,3 +745,99 @@ def test_streaming_repeats_bit_for_bit_on_the_card():
         ):
             assert torch.equal(x, y), i
     assert int(a.state.pool.size) == 1 << 16  # the pool was full: rows were evicted
+
+
+@pytest.mark.gpu
+def test_bf16_decoding_on_the_card():
+    """bf16 decoding multiplies bf16-rounded operands as f32 tensors (exact
+    products, f32 sums): on the card it equals the CPU's up to the order of
+    the sums, the relative error's 99th percentile within 1e-5 and the
+    largest within 2^-7 of the output's scale (a hidden activation on a
+    bf16 rounding boundary may round the other way). Where this PyTorch has
+    ``torch.mm(..., out_dtype=torch.float32)`` for bf16 operands, a layer
+    through it agrees with the f32 form to 1e-6 of its scale."""
+    from clid_slam_torch.models import decoder as dec
+
+    dev = _cuda()
+    mlp = dec.init_mlp(torch.Generator().manual_seed(3), 11, 64, 2, 1, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(16384, 11)).astype(np.float32))
+    to = lambda m, d: dec.MLPParams([w.to(d) for w in m.weights], [b.to(d) for b in m.biases],
+                                    m.w_out.to(d), m.b_out.to(d))
+    want = dec.mlp_forward(mlp, x, bf16=True)
+    got = dec.mlp_forward(to(mlp, dev), x.to(dev), bf16=True).cpu()
+    scale = float(want.abs().max())
+    rel = (got - want).abs() / want.abs().clamp(min=1e-6 * scale)
+    assert float(torch.quantile(rel.flatten(), 0.99)) <= 1e-5
+    assert float((got - want).abs().max()) <= 2.0**-7 * scale
+    a, b = x.to(dev).to(torch.bfloat16), mlp.weights[0].to(dev).to(torch.bfloat16)
+    try:
+        fused = torch.mm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return  # not in this PyTorch: the f32 form above is the one the port runs
+    upcast = a.float() @ b.float()
+    assert fused.dtype == torch.float32
+    assert float((fused - upcast).abs().max()) <= 1e-6 * float(upcast.abs().max())
+
+
+@pytest.mark.gpu
+def test_color_slab_gathers_through_gather_rows_on_the_card():
+    """With color and semantics on, a tracked frame gathers the color work
+    slab and its expanded references through gather_rows beside the
+    geometric ones (8 launches a tracked frame, not 6), and the color slab's
+    gather at a batch's work rows equals the plain version bit for bit."""
+    import warnings
+
+    from clid_slam_torch.mapping import mapper as mp
+    from clid_slam_torch.ops import gather as gt
+
+    opts = dict(color_on=True, color_channel=1, semantic_on=True, sem_class_count=20)
+    system, seq = _tiny_system(**opts)
+    system.process_frame(0, seq.scans[0], seq.imu_windows[0])
+    system.block()
+    before = gt.launches["gather_rows"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for i in (1, 2):
+            system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    out = system.sync()
+    assert gt.launches["gather_rows"] - before >= 8 * 2
+    assert not out["failed"] and np.all(np.isfinite(out["odom_poses"]))
+    st, cfg = system.state, system.cfg
+    assert st.map_state.color_feats.shape[1] == cfg.feature_dim
+    fn = mp.make_mapping_fn(
+        feature_dim=cfg.feature_dim, knn_k=cfg.query_nn_k, nb_offs=system.nb_offs,
+        resolution=cfg.voxel_size_m, max_valid_dist2=3.0 * (3 * cfg.voxel_size_m) ** 2,
+        sdf_scale=cfg.sdf_scale, sigma=cfg.sdf_scale, bs=cfg.bs, bs_new=cfg.bs_new_sample,
+        gradient_decimation=cfg.gradient_decimation, num_grad_eps=cfg.num_grad_eps,
+        weight_e=cfg.weight_e, loss_weight_on=cfg.loss_weight_on, lr=cfg.lr,
+        adam_eps=cfg.adam_eps, color_on=True, sem_on=True, max_outer=1,
+    )
+    c = fn.build_cache(st.map_state, st.pool, st.travel_dist, 2, 1e9,
+                       torch.Generator(device=st.pool.data.device).manual_seed(0), None)
+    n0 = gt.launches["gather_rows"]
+    got = gt.gather_rows(st.map_state.color_feats, c.src_rows)
+    assert gt.launches["gather_rows"] == n0 + 1
+    assert torch.equal(got, gt.gather_rows_reference(st.map_state.color_feats, c.src_rows))
+    assert bool((got != 0).any())
+
+
+@pytest.mark.gpu
+def test_every_option_repeats_bit_for_bit_on_the_card():
+    """Decode-then-weight, bf16 decoding and the color and semantic heads
+    together: two systems from one seed agree in every state tensor after
+    every frame (the autograd loop's backward sums in a fixed order)."""
+    import warnings
+
+    opts = dict(weighted_first=False, mlp_bf16=True, color_on=True, color_channel=1,
+                semantic_on=True, sem_class_count=20)
+    a, seq = _tiny_system(**opts)
+    b, _ = _tiny_system(**opts)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for i in range(4):
+            for system in (a, b):
+                system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+            for x, y in zip(a.state.leaves(), b.state.leaves()):
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x, y), i
+    assert not a.sync()["failed"]

@@ -316,9 +316,9 @@ def _mapper_selection():
         real = tmp.BatchCache
         tmp.BatchCache = lambda **kw: caches.append(kw) or real(**kw)
         try:
-            state, mlp2, losses = fn(
-                neural_map_from_numpy([np.asarray(x) for x in ms], "cpu"),
-                mlp_from_numpy(jax.tree.map(np.asarray, mlp), "cpu"),
+            tmlp = mlp_from_numpy(jax.tree.map(np.asarray, mlp), "cpu")
+            state, mlp2, _, _, losses = fn(
+                neural_map_from_numpy([np.asarray(x) for x in ms], "cpu"), tmlp, tmlp, tmlp,
                 pool_from_numpy([np.asarray(x) for x in pool], "cpu"), t(td), 1, 1e9, 7, 1.0,
                 batch_draws=draws)
         finally:

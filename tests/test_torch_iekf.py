@@ -1,7 +1,8 @@
 """IESEKF parity: device IMU propagation (atol 1e-5), and the
 candidate-cached and the re-querying iterated updates on a converted JAX
 map (poses within 2e-3, as tests/test_streaming.py holds the cached update
-to the re-query update)."""
+to the re-query update), weighted-first and decode-then-weight with the
+weighted SDF std gate (a gate of 10 keeps the points, 0 drops them all)."""
 
 import numpy as np
 import jax
@@ -148,3 +149,62 @@ def test_requery_update_matches_jax():
     np.testing.assert_allclose(n(tr[2]), np.asarray(jr[2]), atol=2e-3)  # vel, biases, gravity
     assert bool(tr[4]) == bool(jr[4])
     assert abs(int(tr[5]) - int(jr[5])) <= 3
+
+
+@pytest.mark.parametrize("max_sdf_std", [10.0, 0.0], ids=["gate_10", "gate_0"])
+def test_decode_then_weight_measurement_matches_jax(max_sdf_std):
+    """The re-querying update's reduction with weighted_first=False: the
+    per-neighbour decode, its weighted mean and std, and the gradient wrt
+    the points inside S6 and b6 (rtol 1e-4), the same valid count, and no
+    NaN from points with no neighbour (their std is sqrt(0))."""
+    js, jmlp, td, kw, args = _update_case()
+    rkw = {k: v for k, v in kw.items()
+           if k not in ("max_iteration", "term_thre_deg", "term_thre_m")}
+    rkw.update(weighted_first=False, max_sdf_std=max_sdf_std)
+    pts = np.concatenate([args[0], np.full((16, 3), 20.0, np.float32)])  # 16 far from the map
+    mask = np.ones(len(pts), bool)
+    R, tr_ = args[2], args[3]
+    jS, jb, jn, _ = jie.make_h_reduce_fn(**rkw)(
+        js, jmlp, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(R), jnp.asarray(tr_), td, 0, 1e9,
+    )
+    ts = neural_map_from_numpy([np.asarray(x) for x in js], "cpu")
+    tmlp = mlp_from_numpy(jax.tree.map(np.asarray, jmlp), "cpu")
+    tS, tb, tn = tie.make_h_reduce_fn(**rkw)(
+        ts, tmlp, t(pts), t(mask), t(R), t(tr_), t(td), 0, 1e9,
+    )
+    assert np.isfinite(n(tS)).all() and np.isfinite(n(tb)).all()
+    assert int(tn) == int(jn)
+    if max_sdf_std > 0:
+        assert int(tn) > 400
+        np.testing.assert_allclose(n(tS), np.asarray(jS), rtol=1e-4, atol=1e-4 * np.abs(jS).max())
+        np.testing.assert_allclose(n(tb), np.asarray(jb), rtol=1e-4, atol=1e-4 * np.abs(jb).max())
+    else:
+        assert int(tn) == 0 and not n(tS).any()
+
+
+@pytest.mark.parametrize("max_sdf_std", [10.0, 0.0], ids=["gate_10", "gate_0"])
+@pytest.mark.parametrize("cached", [True, False], ids=["cached", "requery"])
+def test_decode_then_weight_updates_match_jax(cached, max_sdf_std):
+    """Both iterated updates with weighted_first=False against the JAX
+    package's: the pose within 2e-3 and the same verdict. A gate of 0 keeps
+    no point: the update has no measurement, so it stops at once where it
+    started."""
+    js, jmlp, td, kw, args = _update_case()
+    kw = dict(kw, weighted_first=False, max_sdf_std=max_sdf_std)
+    if cached:
+        kw["n_cand"] = 16
+    jmake, tmake = ((jie.make_cached_update_fn, tie.make_cached_update_fn) if cached else
+                    (jie.make_update_iterated_fn, tie.make_update_iterated_fn))
+    jr = jax.jit(jmake(**kw))(js, jmlp, *[jnp.asarray(a) for a in args], td, 0, 1e9)
+    ts = neural_map_from_numpy([np.asarray(x) for x in js], "cpu")
+    tmlp = mlp_from_numpy(jax.tree.map(np.asarray, jmlp), "cpu")
+    tr = tmake(**kw)(ts, tmlp, *[t(a) for a in args], t(td), 0, 1e9)
+    assert all(np.isfinite(n(x)).all() for x in tr[:4])
+    np.testing.assert_allclose(n(tr[1]), np.asarray(jr[1]), atol=2e-3)  # position
+    np.testing.assert_allclose(n(tr[0]), np.asarray(jr[0]), atol=2e-3)  # rotation
+    assert bool(tr[4]) == bool(jr[4])
+    assert abs(int(tr[5]) - int(jr[5])) <= 3
+    if max_sdf_std == 0:
+        assert int(tr[5]) == int(jr[5]) == 1
+        np.testing.assert_allclose(n(tr[1]), args[3], atol=1e-6)
+        np.testing.assert_allclose(n(tr[0]), args[2], atol=1e-6)

@@ -69,48 +69,46 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize(
-    "option, value, named",
-    [
-        ("color_on", True, "color_on"),
-        ("semantic_on", True, "semantic_on"),
-        ("mlp_bf16", True, "mlp_bf16"),
-        ("weighted_first", False, "weighted_first=False"),
-    ],
-    ids=lambda v: v if isinstance(v, str) else None,
-)
-def test_unported_options_raise(option, value, named):
-    from clid_slam_torch.pipeline.streaming import StreamingSlam
-    from torch_parity import port_config, tiny_config
-
-    cfg = port_config(tiny_config(**{option: value}))
-    with pytest.raises(NotImplementedError, match=named):
-        StreamingSlam(cfg, total_frames=4, device="cpu")
-
-
-@pytest.mark.parametrize(
     "overrides",
     [dict(prune_map_on=True), dict(mlp_leaky_relu=True), dict(map_dup_independent=False),
      dict(main_loss_type="sdf_l2"), dict(dynamic_filter_on=True), dict(ba_freq_frame=5),
-     dict(track_cached=False), dict(feature_dim=6)],
-    ids=lambda d: next(iter(d)),
+     dict(track_cached=False), dict(feature_dim=6), dict(color_on=True, color_channel=1),
+     dict(semantic_on=True), dict(mlp_bf16=True), dict(weighted_first=False),
+     dict(weighted_first=False, mlp_bf16=True, color_on=True, color_channel=1,
+          semantic_on=True)],
+    ids=lambda d: "all_four" if len(d) > 2 else next(iter(d)),
 )
 def test_ported_options_construct(overrides):
-    """The prune cadence, the dynamic filter, BA, the re-querying tracker
-    and the configs the fused kernel does not take (they run the mapper's
-    autograd loop) build a StreamingSlam."""
+    """The prune cadence, the dynamic filter, BA, the re-querying tracker,
+    the color and semantic heads, bf16 decoding, decode-then-weight (each
+    alone and the last four together) and the other configs the fused
+    kernel does not take (they run the mapper's autograd loop) build a
+    StreamingSlam."""
     from clid_slam_torch.pipeline.streaming import StreamingSlam
     from torch_parity import port_config, tiny_config
 
     StreamingSlam(port_config(tiny_config(**overrides)), total_frames=4, device="cpu")
 
 
+def _frame_steps(cfg):
+    """``make_frame_step`` for ``cfg`` (no state is allocated)."""
+    from clid_slam_torch.ops.encoding import make_encoder
+    from clid_slam_torch.ops.voxel import neighbor_offsets
+    from clid_slam_torch.pipeline.streaming import make_frame_step
+
+    enc, _ = make_encoder(num_bands=cfg.pos_encoding_band, freq=cfg.pos_encoding_freq,
+                          base=cfg.pos_encoding_base, use_gaussian=cfg.use_gaussian_pe,
+                          input_dim=cfg.pos_input_dim, seed=cfg.seed)
+    steps = make_frame_step(cfg, neighbor_offsets(cfg.num_nei_cells, cfg.search_alpha), enc)
+    assert sorted(steps) == [(False, False), (False, True), (True, False), (True, True)]
+
+
 def test_large_bench_config_is_supported():
     from clid_slam_torch.pipeline import bench_cases as bc
-    from clid_slam_torch.pipeline.streaming import check_supported
 
     cfg = bc.build_config(large=True)
     assert cfg.prune_map_on
-    check_supported(cfg)
+    _frame_steps(cfg)
 
 
 @pytest.mark.parametrize(
@@ -119,9 +117,8 @@ def test_large_bench_config_is_supported():
 )
 def test_repo_configs_are_supported(path):
     """Every config of the repo, run_quad.yaml's dynamic filter included,
-    passes the port's check (checked without building a system at these
-    configs' map sizes)."""
+    builds the port's frame step (without a system at these configs' map
+    sizes)."""
     from clid_slam_torch.config import Config
-    from clid_slam_torch.pipeline.streaming import check_supported
 
-    check_supported(Config.load(path))
+    _frame_steps(Config.load(path))

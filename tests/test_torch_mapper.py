@@ -5,7 +5,11 @@ for configs the kernel does not take, the static single-batch body
 (dup_independent off) and the general multi-batch body of frame 0 (Adam
 moments carried across batches). Tolerances as for the map
 loop: features and MLP max diff < 3 lr and 99th percentile < 2.5 lr,
-losses rtol 5e-2; certainty rtol 1e-5, update timestamps exact."""
+losses rtol 5e-2; certainty rtol 1e-5, update timestamps exact. Each of
+the three bodies also with the color and semantic heads on a labelled
+pool, decode-then-weight and bf16 decoding (the autograd loop on both
+sides): losses rtol 1e-4 (bf16 1e-2), the three MLPs and both feature
+slabs at the tolerances above."""
 
 import numpy as np
 import jax
@@ -107,9 +111,9 @@ def _run_both(kw, iters, n_batches):
         ms, mlp, mlp, mlp, pool, td, 1, 1e9, key, jnp.int32(iters), jnp.float32(1.0)
     )
     tres = tmp.make_mapping_fn(**kw)(
-        tmap, tmlp, tpool, t(td), 1, 1e9, iters, 1.0, batch_draws=draws
+        tmap, tmlp, tmlp, tmlp, tpool, t(td), 1, 1e9, iters, 1.0, batch_draws=draws
     )
-    return geo0, (jres[0], jres[1], jres[4]), tres
+    return geo0, (jres[0], jres[1], jres[4]), (tres[0], tres[1], tres[4])
 
 
 def _assert_mapping_close(geo0, jres, tres):
@@ -194,3 +198,92 @@ def test_sdf_loss_keeps_optax_gradient_where_logit_and_target_saturate():
     assert np.all(n(p.grad)[saturated] == 0)
     np.testing.assert_allclose(n(p.grad)[~saturated], jg[~saturated], rtol=1e-4,
                                atol=1e-5 * np.abs(jg).max())
+
+
+OPTIONS = {
+    "color_sem": dict(color_on=True, sem_on=True),
+    "decode_then_weight": dict(weighted_first=False),
+    "bf16": dict(mlp_bf16=True),
+}
+OPTION_BODIES = {"fast": BODIES["fast"], "static": BODIES["static"], "general": BODIES["general"]}
+
+
+def _labelled_scene():
+    """The box scene with a color slab, a pool of colors (from the azimuth)
+    and classes (1..4 by quadrant, 0 in free space and on a tenth of the
+    surface samples), and color and semantic MLPs."""
+    ms, _, mlp, td = _scene()
+    rng = np.random.default_rng(1)
+    c = int(ms.count)
+    cf = np.zeros((ms.positions.shape[0], 8), np.float32)
+    cf[:c] = rng.normal(0, 0.1, (c, 8))
+    ms = ms._replace(color_feats=jnp.asarray(cf))
+    d = rng.normal(size=(6000, 3))
+    d[:, 2] *= 0.4
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    surf = d * np.min(np.array([3.0, 2.5, 1.5]) / np.abs(d), axis=1)[:, None]
+    disp = rng.normal(0, 0.2, (6000, 1))
+    coords = (surf * (1 + disp / np.linalg.norm(surf, axis=1, keepdims=True))).astype(np.float32)
+    az = np.arctan2(surf[:, 1], surf[:, 0]) + np.pi
+    color = (0.5 * (np.sin(2 * az) + 1)).astype(np.float32)[:, None]
+    sem = (az // (np.pi / 2)).astype(np.int32).clip(0, 3) + 1
+    sem[(np.abs(disp[:, 0]) > 0.25) | (rng.uniform(size=6000) < 0.1)] = 0
+    pool = jpl.init_pool(1 << 14, 6000, 1)
+    pool = jpl.append_samples(
+        pool, jnp.asarray(coords), jnp.asarray(-disp[:, 0].astype(np.float32)),
+        jnp.asarray(rng.uniform(-1, 1.4, 6000).astype(np.float32)),
+        jnp.asarray(rng.uniform(size=6000) < 0.95), 1,
+        jnp.asarray(rng.uniform(size=6000) < 0.3), key=jax.random.PRNGKey(0),
+        color=jnp.asarray(color), sem=jnp.asarray(sem),
+    )
+    color_mlp = jdec.init_mlp(jax.random.PRNGKey(3), 11, 64, 1, 1, True)
+    sem_mlp = jdec.init_mlp(jax.random.PRNGKey(4), 11, 64, 1, 5, True)
+    return ms, pool, (mlp, color_mlp, sem_mlp), td
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("body", sorted(OPTION_BODIES))
+def test_mapping_body_with_option_matches_jax(body, option):
+    """Each body with the color and semantic heads, with decode-then-weight
+    and with bf16 decoding, fed the JAX batch draws: none of these is in the
+    fused kernel, so both packages run their autograd loops."""
+    import warnings
+
+    kw = dict(MAP_KW, **OPTION_BODIES[body], **OPTIONS[option])
+    general = body == "general"
+    iters, n_batches = (8, 3) if general else (7, 1)
+    ms, pool, mlps, td = _labelled_scene()
+    key = jax.random.PRNGKey(5)
+    draws, k = [], key
+    for _ in range(n_batches):
+        k, kb = jax.random.split(k)
+        draws.append(_draws(pool, kb))
+    tmap = neural_map_from_numpy([np.asarray(x) for x in ms], "cpu")
+    tpool = pool_from_numpy([np.asarray(x) for x in pool], "cpu")
+    tmlps = [mlp_from_numpy(jax.tree.map(np.asarray, m), "cpu") for m in mlps]
+    geo0, col0 = np.asarray(ms.geo_feats), np.asarray(ms.color_feats)
+    jres = jmp.make_mapping_fn(**kw, as_body=True)(
+        ms, *mlps, pool, td, 1, 1e9, key, jnp.int32(iters), jnp.float32(1.0)
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the autograd loop, by design
+        tres = tmp.make_mapping_fn(**kw)(
+            tmap, *tmlps, tpool, t(td), 1, 1e9, iters, 1.0, batch_draws=draws
+        )
+    (jstate, *jm, jloss), (tstate, *tm, tloss) = jres, tres
+    np.testing.assert_allclose(n(tloss), np.asarray(jloss), rtol=1e-2 if option == "bf16" else 1e-4)
+    _close(tstate.geo_feats, jstate.geo_feats)
+    _close(tstate.color_feats, jstate.color_feats)
+    assert np.abs(np.asarray(jstate.geo_feats) - geo0).max() > 5 * LR
+    for i, (got, want) in enumerate(zip(tm, jm)):
+        for a, b in zip(got.tensors(), jax.tree_util.tree_leaves(want)):
+            _close(a, b)
+        moved = max(float(np.abs(np.asarray(b) - np.asarray(c)).max()) for b, c in
+                    zip(jax.tree_util.tree_leaves(want), jax.tree_util.tree_leaves(mlps[i])))
+        # a head that is off is neither decoded nor updated
+        on = i == 0 or (option == "color_sem")
+        assert (moved > LR) if on else (moved == 0.0), (i, moved)
+    moved_c = np.abs(np.asarray(jstate.color_feats) - col0).max()
+    assert (moved_c > 5 * LR) if option == "color_sem" else (moved_c == 0.0)
+    np.testing.assert_allclose(n(tstate.certainty), np.asarray(jstate.certainty), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(n(tstate.ts_update), np.asarray(jstate.ts_update))

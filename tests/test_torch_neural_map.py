@@ -166,6 +166,66 @@ def test_query_feature_matches_jax(layer_norm):
     np.testing.assert_allclose(n(d2t), np.asarray(d2j), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("weighted_first", [True, False], ids=["weighted_first", "per_neighbour"])
+def test_decode_then_weight_and_color_query_match_jax(weighted_first):
+    """query_feature(weighted_first=False) gives the per-neighbour [N, k,
+    F+P] features and the IDW weights (atol 1e-6), and query_color_feature
+    reads the color slab on the geometric query's neighbours in both
+    modes; the weighted sum of the per-neighbour features is the
+    weighted-first feature."""
+    rng = np.random.default_rng(8)
+    js, _, td = _built_map(rng)
+    c = int(js.count)
+    cf = np.zeros((js.positions.shape[0], 5), np.float32)
+    cf[:c] = rng.uniform(0, 1, (c, 5))
+    js = js._replace(color_feats=jnp.asarray(cf))
+    ts = neural_map_from_numpy([np.asarray(x) for x in js], device="cpu")
+    nb = neighbor_offsets(2, 0.5)
+    mvd2 = 3.0 * (3 * RES) ** 2
+    q = rng.normal(0, 2.0, (1500, 3)).astype(np.float32)
+    kw = dict(weighted_first=weighted_first)
+    jr = jnm.query_feature(js, jnp.asarray(q), nb, RES, mvd2, 6, td, 0, 1e9, True, **kw)
+    tr = tnm.query_feature(ts, t(q), t(nb), RES, mvd2, 6, t(td), 0, 1e9, True, **kw)
+    assert tuple(tr.feature.shape) == ((1500, 11) if weighted_first else (1500, 6, 11))
+    np.testing.assert_array_equal(n(tr.knn_idx), np.asarray(jr.knn_idx))
+    np.testing.assert_allclose(n(tr.weights), np.asarray(jr.weights), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(n(tr.feature), np.asarray(jr.feature), atol=1e-6, rtol=0)
+    jc = jnm.query_color_feature(js, jr, 8)
+    tc = tnm.query_color_feature(ts, tr, 8)
+    assert tuple(tc.shape) == jc.shape == (tr.feature.shape[:-1] + (5 + 3,))
+    np.testing.assert_allclose(n(tc), np.asarray(jc), atol=1e-6, rtol=0)
+    if not weighted_first:
+        tw = tnm.query_feature(ts, t(q), t(nb), RES, mvd2, 6, t(td), 0, 1e9, True)
+        np.testing.assert_allclose(
+            n(torch.sum(tr.feature * tr.weights[..., None], dim=1)), n(tw.feature), atol=1e-6
+        )
+    assert (n(tr.knn_idx) >= 0).sum() > 1000
+
+
+def test_color_query_backward_sums_through_gather_rows_nd():
+    """The color slab's gradient is the fixed-order sum of its rows'
+    references, as JAX's autodiff of the same query gives it."""
+    import jax
+
+    rng = np.random.default_rng(9)
+    js, _, td = _built_map(rng)
+    js = js._replace(color_feats=jnp.asarray(rng.uniform(0, 1, (js.positions.shape[0], 4)).astype(np.float32)))
+    ts = neural_map_from_numpy([np.asarray(x) for x in js], device="cpu")
+    nb = neighbor_offsets(2, 0.5)
+    mvd2 = 3.0 * (3 * RES) ** 2
+    q = rng.normal(0, 2.0, (800, 3)).astype(np.float32)
+    cot = rng.normal(size=(800, 7)).astype(np.float32)
+    jq = jnm.query_feature(js, jnp.asarray(q), nb, RES, mvd2, 6, td, 0, 1e9, True)
+    want = jax.grad(lambda c: jnp.sum(jnm.query_color_feature(js._replace(color_feats=c), jq, 8)
+                                      * cot))(js.color_feats)
+    cfeat = ts.color_feats.clone().requires_grad_(True)
+    tq = tnm.query_feature(ts, t(q), t(nb), RES, mvd2, 6, t(td), 0, 1e9, True)
+    out = tnm.query_color_feature(tnm.NeuralMapState(**{**ts.__dict__, "color_feats": cfeat}), tq, 8)
+    (got,) = torch.autograd.grad(torch.sum(out * t(cot)), cfeat)
+    np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert (np.abs(n(got)).sum(1) > 0).sum() > 500
+
+
 def test_certainty_ops_match_jax():
     rng = np.random.default_rng(7)
     js, ts, td = _built_map(rng)

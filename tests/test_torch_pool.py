@@ -2,7 +2,8 @@
 sample_rays (labels atol 1e-5, masks exact), pool append through the
 filling and the eviction phase (backfilled masked rows, colliding
 eviction slots: data, validity and slots exact), window filter, and batch
-index sampling (exact)."""
+index sampling (exact). Colors and class labels through sample_rays,
+append_samples and prep: exact."""
 
 import numpy as np
 import jax
@@ -166,3 +167,119 @@ def test_ordered_cumsum_is_the_float64_prefix_sum():
     np.testing.assert_array_equal(got, np.cumsum(e.astype(np.float64)).astype(np.float32))
     np.testing.assert_array_equal(got, n(torch.cumsum(t(e), 0)))
     np.testing.assert_allclose(got, np.asarray(jnp.cumsum(jnp.asarray(e))), rtol=1e-5)
+
+
+def _labels(pts, rng, channels):
+    """Per-ray colors from the azimuth and classes 1..4 from the quadrant."""
+    az = np.arctan2(pts[:, 1], pts[:, 0]) + np.pi
+    colors = (0.5 * (np.sin(2 * az)[:, None] * np.arange(1, channels + 1) + 1)).astype(np.float32)
+    sem = (az // (np.pi / 2)).astype(np.int32).clip(0, 3) + 1
+    sem[rng.uniform(size=len(pts)) < 0.1] = 0  # some rays unlabelled
+    return colors, sem
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_sample_rays_and_append_carry_labels_as_jax(channels):
+    """Endpoint and near-surface samples carry the ray's color and class,
+    freespace samples 0 and 0; without labels the class is -1. The pool
+    takes both columns as the JAX pool does (every column exact)."""
+    rng = np.random.default_rng(11)
+    pts, mask, pose, lm0 = _sampler_case(0)
+    colors, sem = _labels(pts, rng, channels)
+    key = jax.random.PRNGKey(3)
+    jb = jsm.sample_rays(key, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(pose), lm0, LRES,
+                         colors=jnp.asarray(colors), sem_labels=jnp.asarray(sem), **SAMPLER_KW)
+    tlm = local_map_from_numpy([np.asarray(x) for x in lm0], "cpu")
+    m = len(pts)
+    draws = (np.zeros((3, m), np.float32), np.full((2, m), 0.5, np.float32),
+             np.full((1, m), 0.5, np.float32))
+    tb = tsm.sample_rays(t(pts), t(mask), t(pose), tlm, LRES, draws=draws, colors=t(colors),
+                         sem_labels=t(sem), **SAMPLER_KW)
+    np.testing.assert_array_equal(n(tb.color), np.asarray(jb.color))
+    np.testing.assert_array_equal(n(tb.sem), np.asarray(jb.sem))
+    assert n(tb.color).shape == (7 * m, channels) and (n(tb.sem)[4 * m :] == 0).all()
+    plain = tsm.sample_rays(t(pts), t(mask), t(pose), tlm, LRES, draws=draws, **SAMPLER_KW)
+    assert (n(plain.sem) == -1).all() and not n(plain.color).any()
+    assert n(plain.color).shape == (7 * m, 1)
+
+    # two frames of 2000 of these samples fill a pool of 4500 (every
+    # column exact against JAX); a third evicts, where a slot may land one
+    # row from XLA's (ROADMAP C, settled: ordered_cumsum), so there every
+    # row written must hold the class and the color of its own sample
+    cap, mm = 4500, 2000
+    jp = jpl.init_pool(cap, mm, channels)
+    tp = tpl.init_pool(cap, mm, channels, device="cpu")
+    for f, (lbl_c, lbl_s) in enumerate(((True, True), (True, False), (False, True))):
+        rows = rng.choice(7 * m, mm, replace=False)
+        coords, _, _, bmask, is_new = _batch(rng, mm)
+        sdf, w = np.asarray(jb.sdf_label)[rows], np.asarray(jb.weight)[rows]
+        color, cls = np.asarray(jb.color)[rows], np.asarray(jb.sem)[rows]
+        k = jax.random.PRNGKey(20 + f)
+        jp = jpl.append_samples(
+            jp, jnp.asarray(coords), jnp.asarray(sdf), jnp.asarray(w), jnp.asarray(bmask), f,
+            jnp.asarray(is_new), color=jnp.asarray(color) if lbl_c else None,
+            sem=jnp.asarray(cls) if lbl_s else None, key=k,
+        )
+        before = n(tp.data).copy()
+        tp = tpl.append_samples(
+            tp, t(coords), t(sdf), t(w), t(bmask), f, t(is_new),
+            uniform=t(np.asarray(jax.random.uniform(k, (mm + 1,)))),
+            color=t(color) if lbl_c else None, sem=t(cls) if lbl_s else None,
+        )
+        if f < 2:
+            _assert_pool_equal(tp, jp)
+            continue
+        data = n(tp.data)
+        written = data[:, 5] == f
+        src = {tuple(c): i for i, c in enumerate(coords)}
+        hit = np.array([src[tuple(r)] for r in data[written, :3]])
+        assert written.sum() > 1000 and bmask[hit].all()
+        np.testing.assert_array_equal(data[written, 6], cls[hit].astype(np.float32))
+        np.testing.assert_array_equal(data[written, 8:], before[written, 8:])  # color kept
+    assert (n(tp.data)[:, 6] > 0).sum() > 500 and n(tp.data)[:, 8:].any()
+
+
+def test_prep_carries_labels_as_jax():
+    """make_prep_fn with per-point colors and classes, the JAX draws
+    injected: the pool's class and color columns and its validity exact,
+    coordinates within 1e-5."""
+    from clid_slam_torch.convert import neural_map_from_numpy
+    from clid_slam_torch.mapping import prep as tprep
+    from clid_slam_tpu.mapping import prep as jprep
+    from clid_slam_tpu.models import neural_map as jnm
+
+    rng = np.random.default_rng(12)
+    pts, mask, pose, lm0 = _sampler_case(1)
+    colors, sem = _labels(pts, rng, 1)
+    kw = dict(
+        resolution=0.3, local_resolution=LRES, local_map_size=50.0, window_radius=50.0,
+        map_surface_ratio=0.5, from_sample_points=True, new_certainty_thre=1.0,
+        novelty_on=True, novelty_mode="fast", filter_pool_now=True,
+        **{k: v for k, v in SAMPLER_KW.items()},
+    )
+    m = len(pts)
+    js = jnm.init_map(1 << 13, 1 << 15, 8, 8)
+    jpool = jpl.init_pool(1 << 15, 7 * m, 1)
+    td = jnp.zeros((4,), jnp.float32)
+    key = jax.random.PRNGKey(7)
+    tmap = neural_map_from_numpy([np.asarray(x) for x in js], "cpu")
+    tlm = local_map_from_numpy([np.asarray(x) for x in lm0], "cpu")
+    tpool = pool_from_numpy(_leaves(jpool), "cpu")
+    jres = jprep.make_prep_fn(**kw)(
+        js, lm0, jpool, key, jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(pose), td, 1, 1e9,
+        jnp.asarray(colors), jnp.asarray(sem),
+    )
+    k_s, k_over = jax.random.split(key)
+    ks, kf, kb = jax.random.split(k_s, 3)
+    draws = (np.asarray(jax.random.normal(ks, (3, m))), np.asarray(jax.random.uniform(kf, (2, m))),
+             np.asarray(jax.random.uniform(kb, (1, m))))
+    tres = tprep.make_prep_fn(**kw)(
+        tmap, tlm, tpool, t(pts), t(mask), t(pose), t(np.zeros(4, np.float32)), 1, 1e9,
+        sample_draws=draws, append_uniform=t(np.asarray(jax.random.uniform(k_over, (7 * m + 1,)))),
+        colors=t(colors), sem_labels=t(sem),
+    )
+    jd, td_ = np.asarray(jres.pool.data), n(tres.pool.data)
+    np.testing.assert_array_equal(n(tres.pool.valid), np.asarray(jres.pool.valid))
+    np.testing.assert_array_equal(td_[:, 5:], jd[:, 5:])  # ts, class, pad, color
+    np.testing.assert_allclose(td_[:, :3], jd[:, :3], atol=1e-5, rtol=0)
+    assert (td_[:, 6] >= 1).sum() > m and (td_[:, 8] > 0).sum() > m

@@ -36,7 +36,9 @@ seed its ATE then follows the JAX run's.
 
 ``--set name=value`` (repeatable) sets a config field on both sides, for
 example ``--set track_cached=False`` for the tracker that re-queries the
-map at every iteration.
+map at every iteration, or ``--set weighted_first=False``,
+``--set mlp_bf16=True`` (chip_smoke.py's option phases; ``--frames 12``
+cuts the small sequence to their 12 frames).
 
 ``--k1 plain`` maps the tracked frames with the fused loop's plain PyTorch
 version (``ops/map_loop.py:map_loop_reference``) on the port's device in
@@ -76,9 +78,10 @@ def cut_large(cfg, map_capacity=1 << 17, map_hash_size=1 << 20):
     return cfg
 
 
-def _scenario(name, side, full):
+def _scenario(name, side, full, frames=None):
     """(make_config(seed), sequence, initial velocity, total_frames) from the
-    package of ``side``, so that the port's side imports no JAX."""
+    package of ``side``, so that the port's side imports no JAX. ``frames``
+    cuts the small and dynba sequences."""
     if side in ("jax", "torch_jax_draws"):
         from clid_slam_tpu.pipeline.synthetic import generate_sequence, large_world
     else:
@@ -90,7 +93,7 @@ def _scenario(name, side, full):
             import bench as cases
         else:
             from clid_slam_torch.pipeline import bench_cases as cases
-        seq = cases.make_sequence(False, 25 if name == "small" else 40)
+        seq = cases.make_sequence(False, frames or (25 if name == "small" else 40))
 
         def make_small(seed):
             cfg = cases.build_config(large=False)
@@ -189,6 +192,9 @@ def main():
                     default="both")
     ap.add_argument("--scenario", choices=("tiny", "large", "small", "dynba"), default="tiny")
     ap.add_argument("--full", action="store_true", help="large scenario uncut (for the card)")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="the small or dynba sequence's first N frames (chip_smoke.py's "
+                    "option phases run 12)")
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--k1", choices=("kernel", "plain"), default="kernel",
                     help="the port's fused mapping loop: its kernel or its plain version")
@@ -210,7 +216,7 @@ def main():
     sides = ("jax", "torch") if args.side == "both" else (args.side,)
     ate = {s: [] for s in sides}
     for side in sides:
-        make_cfg, seq, vel, total = _scenario(args.scenario, side, args.full)
+        make_cfg, seq, vel, total = _scenario(args.scenario, side, args.full, args.frames)
 
         def make(seed, make_cfg=make_cfg):
             cfg = make_cfg(seed=seed)
@@ -246,7 +252,8 @@ def main():
             "ate_min_m": float(np.min(v)), "ate_max_m": float(np.max(v)),
             "over_0.2m": int(np.sum(np.asarray(v) >= 0.2))}
         for s, v in ate.items()
-    } | {"scenario": args.scenario, "set": overrides, "full": args.full, "device": args.device,
+    } | {"scenario": args.scenario, "frames": args.frames, "set": overrides, "full": args.full,
+         "device": args.device,
          "k1": args.k1,
          "torch_threads": torch.get_num_threads()}))
 
