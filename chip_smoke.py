@@ -88,6 +88,27 @@ Phases, each printing one JSON line:
           body with both heads, 10 frames: the color L1 and the semantic NLL
           at the scan's points must fall, and the color slab's gathers at the
           mapper's shapes equal their plain versions bit for bit;
+  classic the classic driver's CLI (``pipeline/slam.py:run_slam``) on a
+          written dataset: the small configuration's widths in the config
+          file, the small sequence's geometry (1024x32 beams, 25 frames)
+          starting at rest (the CLI boots its filter with zero velocity),
+          scans read through the native prefetcher, IMU rows through the
+          host f64 filter, the re-querying tracker, K1 on tracked frames,
+          then ``finalize``: ATE/ARE (gate ATE < 0.2 m), the steady ms a
+          frame and its FrameStats split (preprocess, tracking, map_prep,
+          map_opt), the launch counts (map_loop one a tracked frame,
+          gather_lanes at least 4 an IESEKF iteration and 4 a mapping
+          batch), the output files;
+  classic_arrays  the same frames through ``process_frame(i, points, imu)``
+          from memory: the trajectory equal to classic's bit for bit;
+  classic_pgo  12 frames from the files, ``adjust_map`` by a fixed
+          correction, 12 more frames on the post-PGO (rotate_vecs) queries:
+          K1 once a tracked frame, ATE against the corrected ground truth
+          under 0.25 m;
+  stream_files  the bench's small sequence written to files and run by
+          StreamingSlam from them (``points=None``), then ``finalize``: its
+          trajectory, losses and iteration counts equal the in-memory
+          ``stream`` phase's bit for bit;
   kernels the per-kernel summary line.
 Then the nvidia-smi line and, last, {"ok": true, "device": {...}}.
 
@@ -103,6 +124,7 @@ import json
 import os
 import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -377,6 +399,225 @@ def checkpoint_resume(reference, seq, split, device, **overrides):
     return res
 
 
+# the small bench configuration (pipeline/bench_cases.py:build_config) in
+# the sections of a config file, over the written dataset's defaults
+SMALL_YAML = {
+    "process.min_range_m": 0.5, "process.max_range_m": 60.0, "process.vox_down_m": 0.1,
+    "sampler.local_voxel_size_m": 0.2, "sampler.surface_sample_range_m": 0.25,
+    "sampler.surface_sample_n": 4, "sampler.free_front_sample_n": 2,
+    "sampler.free_behind_sample_n": 1, "neuralpoints.voxel_size_m": 0.4,
+    "neuralpoints.search_alpha": 0.5, "optimizer.batch_size": 16384, "optimizer.iters": 10,
+    "optimizer.init_iter_ratio": 40, "optimizer.adaptive_iters": True,
+    "continual.batch_size_new_sample": 1000, "continual.pool_filter_freq": 10,
+    "tracker.iter_n": 50, "tracker.source_vox_down_m": 0.6, "decoder.freeze_after_frame": 15,
+    "loss.loss_weight_on": True, "tpu.map_capacity": 1 << 18, "tpu.map_hash_size": 1 << 22,
+    "tpu.local_map_capacity": 1 << 19, "tpu.local_map_hash_size": 1 << 21,
+    "tpu.max_scan_points": 1 << 15, "tpu.max_source_points": 1 << 13,
+    "tpu.pool_capacity": 1 << 21, "eval.save_mesh": False, "eval.silence_log": True,
+}
+
+
+def write_small_dataset(root, n_frames, rest_start):
+    """The small sequence written in the converter's layout with the small
+    configuration: ``rest_start`` ramps the platform up from rest over 6
+    frames (the file-based CLI boots its filter with zero velocity), else
+    the bench's own sequence. Returns (sequence, config path, the config
+    differences from bench_cases.build_config)."""
+    import dataclasses
+
+    from clid_slam_torch.config import Config
+    from clid_slam_torch.pipeline import bench_cases as bc
+    from clid_slam_torch.pipeline.synthetic import generate_sequence, write_sequence_dataset
+
+    seq = (generate_sequence(n_frames=n_frames, n_azimuth=1024, n_elev=32, noise_std=0.01, seed=3,
+                             ramp_frames=6) if rest_start else bc.make_sequence(False, n_frames))
+    path = write_sequence_dataset(seq, root, SMALL_YAML)
+    loaded, bench = Config.load(path), bc.build_config(False)
+    differ = sorted(f.name for f in dataclasses.fields(loaded) if f.name not in (
+        "name", "run_name", "output_root", "pc_path", "imu_path", "pose_path")
+        and not np.array_equal(np.asarray(getattr(loaded, f.name)), np.asarray(getattr(bench, f.name))))
+    return seq, path, differ
+
+
+@contextlib.contextmanager
+def captured_systems(cls):
+    """Collect every ``cls`` instance that ``finalize`` runs on (the CLI
+    returns only the metrics)."""
+    seen, orig = [], cls.finalize
+
+    def finalize(self, run_path):
+        seen.append(self)
+        return orig(self, run_path)
+
+    cls.finalize = finalize
+    try:
+        yield seen
+    finally:
+        cls.finalize = orig
+
+
+def imu_rows(seq, i):
+    w = seq.imu_windows[i]
+    return np.zeros((1, 7)) if w is None else w
+
+
+def classic_phase(device, root, n_frames=25, warmup=10):
+    """The CLI (``run_slam``) on a written small sequence that starts at
+    rest: scans read through the native prefetcher, IMU rows from the
+    CSV files through the host f64 filter, the re-querying tracker, K1 on
+    tracked frames, then ``finalize``. Launch counts set to 0 just before
+    and read just after."""
+    from clid_slam_torch import native
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.pipeline import slam as tslam
+
+    seq, path, differ = write_small_dataset(root, n_frames, rest_start=True)
+    ml.launches = 0
+    gt.reset_launches()
+    t0 = time.perf_counter()
+    with captured_systems(tslam.SlamSystem) as seen:
+        result = tslam.run_slam(path, device=device)
+    wall_s = time.perf_counter() - t0
+    launches, gathers = ml.launches, dict(gt.launches)
+    system = seen[0]
+    stats = system.stats
+    steady = [st for st in stats if st.frame_id >= warmup]
+    split = {k: float(np.mean([st.timings[k] for st in steady]) * 1e3)
+             for k in ("preprocess", "tracking", "map_prep", "map_opt")}
+    iters = [st.track_iters for st in stats]
+    tracked = sum(1 for st in stats if st.frame_id > 0)
+    lanes_least = 4 * int(sum(iters)) + 4 * tracked
+    files = ("metrics.json", "odom_poses_kitti.txt", "odom_poses_tum.txt", "time_table.csv",
+             "map_checkpoint.npz", "neural_points.ply")
+    missing = [f for f in files if not os.path.isfile(os.path.join(system.run_path, f))]
+    res = {
+        "phase": "classic", "frames": n_frames, "warmup": warmup, "config_differs_from_bench": differ,
+        "native_reader": native.available() and system.dataset._frame_loader() is not None,
+        "wall_s": wall_s, "steady_ms_per_frame": float(sum(split.values())),
+        "frame_stats_ms": split,
+        "ate_rmse_m": result["ate_rmse_m_noalign"], "are_rmse_deg": result["are_rmse_deg_noalign"],
+        "neural_points": result["neural_points"], "track_iters": iters,
+        "map_loop_launches": launches, "tracked_frames": tracked,
+        "gather_rows_launches": gathers["gather_rows"],
+        "gather_lanes_launches": gathers["gather_lanes"], "gather_lanes_launches_least": lanes_least,
+        "missing_files": missing,
+    }
+    emit(res)
+    if missing:
+        raise AssertionError(f"the CLI did not write {missing}")
+    if not res["native_reader"]:
+        raise AssertionError(f"scans not read natively: {native.why_unavailable()}")
+    if not result["ate_rmse_m_noalign"] < 0.2:
+        raise AssertionError(f"classic ATE {result['ate_rmse_m_noalign']} >= 0.2 m")
+    if launches != tracked:
+        raise AssertionError(f"map_loop launched {launches} times for {tracked} tracked frames")
+    if gathers["gather_lanes"] < lanes_least:
+        raise AssertionError(f"gather_lanes launched {gathers['gather_lanes']} times, "
+                             f"expected at least {lanes_least}")
+    if gathers["gather_rows"] < 2 * int(sum(iters)):
+        raise AssertionError(f"gather_rows launched {gathers['gather_rows']} times")
+    return res, seq, path, system
+
+
+def classic_arrays_phase(device, seq, path, reference):
+    """The same frames from memory (``process_frame(i, points, imu)``):
+    the trajectory must equal the CLI run's bit for bit."""
+    from clid_slam_torch.config import Config
+    from clid_slam_torch.pipeline import slam as tslam
+
+    system = tslam.SlamSystem(Config.load(path), device=device)
+    n = len(seq.scans)
+    for i in range(n):
+        system.process_frame(i, seq.scans[i], imu_rows(seq, i))
+    got, want = system.dataset.odom_poses[:n], reference.dataset.odom_poses[:n]
+    res = {"phase": "classic_arrays", "frames": n, "bit_equal": bool(np.array_equal(got, want)),
+           "max_abs_diff": float(np.abs(got - want).max())}
+    emit(res)
+    if not res["bit_equal"]:
+        raise AssertionError("the run from memory differs from the run from the files")
+    return res
+
+
+def classic_pgo_phase(device, seq, path, split=12):
+    """``split`` frames from the files, then ``adjust_map`` by a fixed
+    correction (tests/test_slam_integration.py:137's), then the rest of the
+    frames on the post-PGO (rotate_vecs) queries: K1 still once a tracked
+    frame, ATE against the corrected ground truth under 0.25 m."""
+    from clid_slam_torch.config import Config
+    from clid_slam_torch.odometry.iekf import _so3_exp
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.pipeline import slam as tslam
+    from clid_slam_torch.utils import metrics
+
+    n = min(len(seq.scans), 2 * split)
+    system = tslam.SlamSystem(Config.load(path), device=device)
+    ml.launches = 0
+    gt.reset_launches()
+    for i in range(split):
+        system.process_frame(i)
+    D = np.eye(4)
+    D[:3, :3] = _so3_exp(np.array([0.0, 0.0, 0.05]))
+    D[:3, 3] = [0.2, -0.1, 0.05]
+    x = system.tracker.x
+    system.adjust_map(np.einsum("ij,tjk->tik", D, system.dataset.odom_poses[:split]))
+    x.rot, x.pos, x.vel = D[:3, :3] @ x.rot, D[:3, :3] @ x.pos + D[:3, 3], D[:3, :3] @ x.vel
+    before_pgo = ml.launches
+    lost = [i for i in range(split, n) if not system.process_frame(i).tracking_ok]
+    launches, gathers = ml.launches, dict(gt.launches)
+    m = metrics.absolute_error(system.dataset.odom_poses[:n],
+                               np.einsum("ij,tjk->tik", D, seq.poses[:n]), align=False)
+    res = {"phase": "classic_pgo", "frames": n, "adjusted_after_frame": split - 1,
+           "after_pgo": system.after_pgo, "ate_rmse_m": m["ate_rmse_m"],
+           "are_rmse_deg": m["are_rmse_deg"], "lost_frames": lost,
+           "map_loop_launches": launches, "map_loop_launches_after_pgo": launches - before_pgo,
+           "tracked_frames": n - 1, "gather_rows_launches": gathers["gather_rows"],
+           "gather_lanes_launches": gathers["gather_lanes"]}
+    emit(res)
+    if not system.after_pgo or lost:
+        raise AssertionError(f"post-PGO run: after_pgo {system.after_pgo}, lost frames {lost}")
+    if launches != n - 1:
+        raise AssertionError(f"map_loop launched {launches} times for {n - 1} tracked frames")
+    if not m["ate_rmse_m"] < 0.25:
+        raise AssertionError(f"post-PGO ATE {m['ate_rmse_m']} >= 0.25 m")
+    return res
+
+
+def stream_files_phase(device, root, reference, n_frames=25):
+    """The bench's small sequence written to files and run by StreamingSlam
+    from them (``points=None``), then ``finalize``: its trajectory, losses
+    and iteration counts equal the in-memory ``stream`` phase's
+    (``reference``) bit for bit."""
+    from clid_slam_torch.config import Config
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.pipeline import bench_cases as bc
+    from clid_slam_torch.pipeline.streaming import StreamingSlam
+
+    seq, path, differ = write_small_dataset(root, n_frames, rest_start=False)
+    cfg = Config.load(path)
+    cfg.diff_travel_dist_local = 1e9  # as build_config sets it for the small scale
+    system = StreamingSlam(cfg, total_frames=bc.TOTAL_FRAMES, device=device)
+    system.seed_pose(seq.poses[0][:3, :3], seq.poses[0][:3, 3], bc.initial_velocity(seq, False))
+    ml.launches = 0
+    for i in range(n_frames):
+        system.process_frame(i)
+    launches = ml.launches
+    result = system.finalize(os.path.join(root, "stream_out"))
+    got, want = system.sync(), reference.sync()
+    differ_out = [k for k in ("odom_poses", "losses", "track_iters") if not np.array_equal(got[k], want[k])]
+    res = {"phase": "stream_files", "frames": n_frames, "config_differs_from_bench": differ,
+           "ate_rmse_m": result["ate_rmse_m_noalign"], "map_loop_launches": launches,
+           "differs_from_stream": differ_out,
+           "max_pose_diff": float(np.abs(got["odom_poses"] - want["odom_poses"]).max())}
+    emit(res)
+    if differ_out:
+        raise AssertionError(f"the run from the files differs from the stream phase: {differ_out}")
+    if launches != n_frames - 1:
+        raise AssertionError(f"map_loop launched {launches} times for {n_frames - 1} tracked frames")
+    return res
+
+
 @contextlib.contextmanager
 def plain_gathers():
     """The gather wrappers swapped for their plain PyTorch versions, which
@@ -547,7 +788,7 @@ def color_sem_map(device, n_frames=10):
     mapping = mp.make_mapping_fn(**dict(
         sm.mapping_kwargs(cfg, system.nb_offs, system.encode_vecs),
         resample_every=max(cfg.map_resample_every, cfg.iters + 10), max_outer=1,
-        dup_independent=cfg.map_dup_independent))
+        dup_independent=cfg.map_dup_independent, use_pallas=cfg.map_pallas))
     offs = torch.as_tensor(system.nb_offs, device=device)
     dist2 = 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
     window = cfg.diff_travel_dist_local
@@ -917,7 +1158,7 @@ def main():
         emit(c)
     gather_table, probe_launches = gather_phase(device)
 
-    small = stream_phase("stream", False, 25, 10, device)[0]
+    small, small_system = stream_phase("stream", False, 25, 10, device)
     large, large_system = stream_phase("stream_large", True, 200, 10, device)
     prune_check(large_system, 200)
     del large_system
@@ -938,6 +1179,13 @@ def main():
                                 ("stream_bf16", dict(mlp_bf16=True)),
                                 ("stream_color_sem", COLOR_SEM))]
     labelled = color_sem_map(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        classic, classic_seq, classic_cfg, classic_system = classic_phase(device, tmp)
+        classic_arrays_phase(device, classic_seq, classic_cfg, classic_system)
+        del classic_system
+        pgo = classic_pgo_phase(device, classic_seq, classic_cfg)
+        files = stream_files_phase(device, os.path.join(tmp, "bench"), small_system)
+    del small_system
     if args.profile:
         profile_phase(False, 20, 5, device)
         profile_phase(True, 60, 5, device)
@@ -948,7 +1196,8 @@ def main():
 
     def by_path(key):
         return {r["phase"]: r[key]
-                for r in (small, large, fallback, dynba, resumed, requery, *options, labelled)}
+                for r in (small, large, fallback, dynba, resumed, requery, *options, labelled,
+                          classic, pgo, files) if key in r}
 
     main_case = cases[0]  # the bench config: 1 hidden layer, no layer norm
     # launches: the count on the large run, this script's full-width path;
@@ -969,7 +1218,8 @@ def main():
         gather_kernel_entry(
             "gather_rows", gather_table, "mapper f0", large["gather_rows_launches"],
             dict(by_path("gather_rows_launches"), probe=probe_launches["gather_rows"]),
-            other_variants=["mirror mapper probe", "BA pose gather", "mirror filter probe",
+            other_variants=["mirror mapper probe", "mapper color work0", "mapper color f0",
+                            "BA pose gather", "mirror filter probe",
                             "query feats BA", "query feats filter"],
         ),
         gather_kernel_entry(

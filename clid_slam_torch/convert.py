@@ -6,7 +6,9 @@
   order (the order of ``jax.tree_util.tree_leaves``, which
   ``StreamingSlam.save_checkpoint`` writes as leaf_0, leaf_1, ...) and
   builds the port's ``StreamState``, maps and pool included;
-  ``stream_state_to_numpy`` is its inverse.
+  ``stream_state_to_numpy`` is its inverse;
+- ``classic_state_from_numpy`` carries a JAX ``SlamSystem``'s state (maps,
+  pool, MLPs, the host filter, the dataset's poses) into the port's.
 
 Nothing here imports JAX: callers hand over numpy arrays.
 """
@@ -146,3 +148,44 @@ def stream_state_to_numpy(state: StreamState) -> list:
         else:
             out.append(x.detach().cpu().numpy())
     return out
+
+
+_CLASSIC_DATASET = ("odom_poses", "travel_dist", "cur_pose_ref", "last_pose_ref",
+                    "last_odom_tran", "stop_count", "stop_status", "lose_track")
+
+
+def classic_state_from_numpy(system, arrays: dict) -> None:
+    """Carry a JAX ``SlamSystem``'s state into the port's ``system`` (a
+    ``pipeline/slam.py:SlamSystem`` of the same config), in place, from
+    numpy arrays: ``map``, ``local_map`` and ``pool`` (each the state's
+    leaves in field order), ``mlp``, ``color_mlp`` and ``sem_mlp`` (leaf
+    lists or objects with the params' attributes), the host filter's
+    ``iekf_rot``, ``iekf_pos``, ``iekf_vel``, ``iekf_bg``, ``iekf_ba``,
+    ``iekf_grav`` and ``iekf_P``, ``processed_frame``, and the dataset's
+    ``odom_poses`` and ``travel_dist`` with, where given, its
+    ``cur_pose_ref``, ``last_pose_ref``, ``last_odom_tran`` and stop and
+    lose-track flags. ``travel_dist_dev`` (the device copy) defaults to the
+    dataset's. The generator is left as it is."""
+    from .odometry.iekf import IEKFState
+
+    dev = system.device
+    system.map_state = neural_map_from_numpy(arrays["map"], dev)
+    system.local_map = local_map_from_numpy(arrays["local_map"], dev)
+    system.pool = pool_from_numpy(arrays["pool"], dev)
+    system.mlp = mlp_from_numpy(arrays["mlp"], dev)
+    system.color_mlp = mlp_from_numpy(arrays["color_mlp"], dev)
+    system.sem_mlp = mlp_from_numpy(arrays["sem_mlp"], dev)
+    f64 = lambda k: np.array(arrays[k], np.float64)
+    system.tracker.x = IEKFState(
+        rot=f64("iekf_rot"), pos=f64("iekf_pos"), vel=f64("iekf_vel"), bg=f64("iekf_bg"),
+        ba=f64("iekf_ba"), grav=f64("iekf_grav"),
+    )
+    system.tracker.P = f64("iekf_P")
+    d = system.dataset
+    for k in _CLASSIC_DATASET:
+        if k in arrays:
+            v = arrays[k]
+            setattr(d, k, np.array(v) if np.ndim(v) else type(getattr(d, k))(v))
+    d.processed_frame = int(arrays["processed_frame"])
+    td = arrays.get("travel_dist_dev", np.asarray(d.travel_dist)[: system.total_frames])
+    system.travel_dist_dev = _t(td, dev, torch.float32)

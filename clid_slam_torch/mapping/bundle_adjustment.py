@@ -42,6 +42,7 @@ def make_ba_fn(
     adam_eps: float = 1e-15,
     mlp_leaky: bool = False,
     mlp_bf16: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
 ):
     """Returns ``bundle_adjust(map_state, mlp, pool, poses0[W,4,4],
@@ -96,7 +97,7 @@ def make_ba_fn(
                 q = nm.query_feature(
                     replace(map_state, geo_feats=f), pts, offs, resolution,
                     max_valid_dist2, knn_k, travel_dist, cur_ts, window, True,
-                    encode_vecs=encode_vecs,
+                    rotate_vecs=rotate_vecs, encode_vecs=encode_vecs,
                 )
                 pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
                 # squared SDF at measured surface points (utils/mapper.py:927)

@@ -32,6 +32,7 @@ def make_dynamic_filter_fn(
     sdf_ratio_thre: float,
     mlp_leaky: bool = False,
     mlp_bf16: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
 ):
     """Returns ``static_mask(map_state, mlp, points_world[N,3], mask[N],
@@ -44,7 +45,8 @@ def make_dynamic_filter_fn(
             pts = points_world.detach().requires_grad_(True)
             q = nm.query_feature(
                 map_state, pts, offs_t.to(pts.device), resolution, max_valid_dist2,
-                knn_k, travel_dist, cur_ts, window, True, encode_vecs=encode_vecs,
+                knn_k, travel_dist, cur_ts, window, True, rotate_vecs=rotate_vecs,
+                encode_vecs=encode_vecs,
             )
             pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
             (grad,) = torch.autograd.grad(pred.sum(), pts)

@@ -6,10 +6,11 @@ Two bodies, as in the JAX streaming step:
   replay batch per frame, its kNN geometry frozen in a cache. With
   ``dup_independent`` the expanded [bs, K, F] features are trained as
   independent parameters and the per-point mean delta is written back
-  once: by the fused kernel (``ops/map_loop.py``) where the config is
-  eligible, else by the autograd loop with a ``RuntimeWarning`` that names
-  the reasons. Without ``dup_independent`` the autograd loop trains the
-  compact [W, F] work slab itself;
+  once: with ``use_pallas`` (``cfg.map_pallas``) by the fused kernel
+  (``ops/map_loop.py``) where the config is eligible, else by the autograd
+  loop, with a ``RuntimeWarning`` that names the reasons when
+  ``use_pallas`` asked for the kernel. Without ``dup_independent`` the
+  autograd loop trains the compact [W, F] work slab itself;
 - the general multi-batch body, used on frame 0: ``ceil(iters / R)``
   batches of R Adam steps each on a compact working slab, with torch
   autograd, Adam moments persisting across batches in full-capacity slabs.
@@ -206,6 +207,7 @@ def make_mapping_fn(
     weight_s: float = 1.0,
     surface_sample_range_m: float = 0.25,
     freespace_label_on: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
     weighted_first: bool = True,
     layer_norm: bool = False,
@@ -213,6 +215,7 @@ def make_mapping_fn(
     loss_type: str = "bce",
     max_outer: int = 0,
     dup_independent: bool = False,
+    use_pallas: bool = False,
 ):
     """Returns ``mapping(map_state, mlp, color_mlp, sem_mlp, pool,
     travel_dist, cur_ts, window, iter_count, mlp_lr_scale, generator=None,
@@ -228,7 +231,14 @@ def make_mapping_fn(
     ``weight_s``), so its gradient reaches those features too. A head that
     is off is neither decoded nor updated. ``weighted_first=False`` decodes
     each neighbour and weights the decoded values; ``mlp_bf16`` decodes in
-    bf16 (``models/decoder.py``)."""
+    bf16 (``models/decoder.py``).
+
+    ``use_pallas`` (the JAX package's name) picks the fused kernel for the
+    single-batch body with ``dup_independent``; without it that body runs
+    the autograd loop on the expanded features, the JAX package's loop off
+    the Pallas path. ``rotate_vecs`` is the post-PGO mode of
+    ``neural_map.query_feature``: the relative vectors are rotated before
+    they are encoded, so the kernel receives rotated encodings."""
     if max_outer not in (0, 1):
         raise NotImplementedError(
             "the port has the general body (max_outer=0) and the single-batch "
@@ -273,8 +283,10 @@ def make_mapping_fn(
         nb_pos = gather_lanes(mir, sel)[..., :3]
 
         vec0 = coord[:, None, :] - nb_pos  # [bs,k,3]
+        quat_sel = gather_rows_nd(map_state.quats, safe) if rotate_vecs else None
+        vec0_r = nm.conj_rotate(quat_sel, vec0) if rotate_vecs else vec0
         w0 = nm.idw_weights(knn_d2, valid, nn_count)
-        enc0 = encode_vecs(vec0) if encode_vecs is not None else vec0
+        enc0 = encode_vecs(vec0_r) if encode_vecs is not None else vec0_r
         enc0 = torch.where(valid[..., None], enc0, torch.zeros_like(enc0))
 
         # tap geometry (±eps per axis on decimated rows), reusing the
@@ -289,6 +301,8 @@ def make_mapping_fn(
         tap_valid = valid_d[None] & (tap_d2 <= max_valid_dist2)
         tap_nc = torch.sum(tap_valid.to(torch.int32), dim=-1)
         w_tap = nm.idw_weights(tap_d2, tap_valid, tap_nc)
+        if rotate_vecs:
+            tap_vec = nm.conj_rotate(quat_sel[::dec_step][:bd][None], tap_vec)
         enc_tap = encode_vecs(tap_vec) if encode_vecs is not None else tap_vec
         enc_tap = torch.where(tap_valid[..., None], enc_tap, torch.zeros_like(enc_tap))
 
@@ -494,7 +508,7 @@ def make_mapping_fn(
                 color_on=color_on, sem_on=sem_on, weighted_first=weighted_first,
                 mlp_bf16=mlp_bf16, mlp_leaky=mlp_leaky, loss_type=loss_type,
                 feature_dim=feature_dim, n_hidden=len(mlps[0].weights),
-            )
+            ) if use_pallas else []
             if reasons:
                 warnings.warn(
                     "fused mapping kernel disabled for this config "
@@ -502,6 +516,7 @@ def make_mapping_fn(
                     RuntimeWarning,
                     stacklevel=3,
                 )
+            if reasons or not use_pallas:
                 f_new, mlps_new, losses = autograd_loop(
                     make_loss_fn(c, expanded=True), f0s, mlps, int(inner_n), mlp_lr
                 )

@@ -254,6 +254,15 @@ def layer_norm_feats(f: torch.Tensor) -> torch.Tensor:
     return (f - mu) * torch.rsqrt(var + 1e-5)
 
 
+def conj_rotate(quats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Rotate ``vecs`` [..., 3] by the conjugates of ``quats`` [..., 4]
+    (wxyz), in the JAX package's operation order."""
+    q = quats * torch.tensor([1.0, -1.0, -1.0, -1.0], device=quats.device)
+    w, u = q[..., :1], q[..., 1:]
+    uv = torch.linalg.cross(u.expand_as(vecs), vecs, dim=-1)
+    return vecs + 2.0 * (w * uv + torch.linalg.cross(u.expand_as(uv), uv, dim=-1))
+
+
 def query_feature(
     state: NeuralMapState,
     points: torch.Tensor,
@@ -265,6 +274,7 @@ def query_feature(
     cur_ts=0,
     diff_travel_dist_local=1e9,
     time_filtering: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
     layer_norm: bool = False,
     weighted_first: bool = True,
@@ -278,7 +288,12 @@ def query_feature(
     ``weighted_first=False`` (decode-then-weight) returns the per-neighbour
     features [N, k, F+P] in place of their IDW-weighted sum; the caller
     decodes each neighbour and weights the decoded values with
-    ``weights``."""
+    ``weights``.
+
+    ``rotate_vecs=True`` is the post-PGO mode: after ``adjust_map`` each
+    point's quaternion holds its accumulated pose correction, and the
+    relative vector is expressed in the point's original frame by the
+    conjugate rotation (model/neural_points.py:666-671)."""
     cap = map_capacity(state)
     d2, h, pvalid, mir = neighborhood_probe(
         state, points, nb_offs, resolution, max_valid_dist2,
@@ -301,6 +316,8 @@ def query_feature(
     feats = torch.where(valid[..., None], feats, torch.zeros_like(feats))
     nb_pos = gather_lanes(mir, sel)[..., :3]
     vecs = points[:, None, :] - nb_pos
+    if rotate_vecs:
+        vecs = conj_rotate(gather_rows_nd(state.quats, safe), vecs)
     if encode_vecs is not None:
         vecs = encode_vecs(vecs)
     vecs = torch.where(valid[..., None], vecs, torch.zeros_like(vecs))
@@ -497,3 +514,10 @@ def adjust_map(
         state, positions=positions, quats=quats, hash_table=hash_table,
         hash_mirror=hash_mirror,
     )
+
+
+def memory_mb(state: NeuralMapState, feature_dim: int) -> float:
+    """Map memory accounting (model/neural_points.py:157-174)."""
+    n = int(state.count)
+    point_dim = feature_dim + 3 + 4
+    return n * point_dim * 4 / 1024 / 1024

@@ -1,7 +1,8 @@
-"""IESEKF pieces of the streaming frame step (port of
-clid_slam_tpu/odometry/iekf.py): device IMU propagation and the two
-iterated updates. The host float64 ``IEKF`` of the JAX package is not
-ported (the classic driver is later work).
+"""IESEKF (port of clid_slam_tpu/odometry/iekf.py): the host float64
+filter of the classic driver (``IEKF``: numpy ``predict`` one IMU row at a
+time, and ``update_iterated`` over a measurement reduction on the device),
+and the device pieces of the streaming frame step: IMU propagation and the
+two iterated updates.
 
 Device loops:
 - ``device_predict_imu`` composes the per-row rotation increments and the
@@ -24,7 +25,10 @@ that its ``jax.grad`` does not differentiate.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
+from typing import Callable
 
+import numpy as np
 import torch
 
 from ..models import decoder as dec
@@ -33,6 +37,227 @@ from ..ops.gather import gather_lanes
 from ..utils import lie
 
 G_M_S2 = 9.81
+
+
+# ------------------------------------------------------- host float64 SO(3)
+
+
+def _skew(v):
+    return np.array(
+        [[0, -v[2], v[1]], [v[2], 0, -v[0]], [-v[1], v[0], 0]], dtype=np.float64
+    )
+
+
+def _so3_exp(w):
+    th = np.linalg.norm(w)
+    if th < 1e-10:
+        return np.eye(3)
+    a = w / th
+    K = _skew(a)
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+def _so3_log(R):
+    tr = np.trace(R)
+    ct = np.clip((tr - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(ct)
+    w = np.array(
+        [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]], dtype=np.float64
+    )
+    if abs(th) < 1e-4:
+        scale = 0.5 + th * th / 12.0
+    else:
+        scale = 0.5 * th / (np.sin(th) + 1e-12)
+    return scale * w
+
+
+@dataclass
+class IEKFConfig:
+    measurement_noise_covariance: float = 0.01
+    bias_noise_covariance: float = 0.0001
+    max_iteration: int = 50
+    term_thre_deg: float = 0.01
+    term_thre_m: float = 0.001
+    eps: float = 0.001
+    min_valid_ratio: float = 0.2
+
+
+@dataclass
+class IEKFState:
+    """Nominal state; error-state covariance P."""
+
+    rot: np.ndarray = field(default_factory=lambda: np.eye(3))
+    pos: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    vel: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    bg: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    ba: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    grav: np.ndarray = field(default_factory=lambda: np.array([0.0, 0.0, -G_M_S2]))
+
+    def boxplus(self, dx: np.ndarray) -> "IEKFState":
+        return IEKFState(
+            rot=self.rot @ _so3_exp(dx[0:3]),
+            pos=self.pos + dx[3:6],
+            vel=self.vel + dx[6:9],
+            bg=self.bg + dx[9:12],
+            ba=self.ba + dx[12:15],
+            grav=self.grav + dx[15:18],
+        )
+
+    def boxminus(self, other: "IEKFState") -> np.ndarray:
+        return np.concatenate(
+            [
+                _so3_log(other.rot.T @ self.rot),
+                self.pos - other.pos,
+                self.vel - other.vel,
+                self.bg - other.bg,
+                self.ba - other.ba,
+                self.grav - other.grav,
+            ]
+        )
+
+    def pose_matrix(self) -> np.ndarray:
+        T = np.eye(4)
+        T[:3, :3] = self.rot
+        T[:3, 3] = self.pos
+        return T
+
+
+class IEKF:
+    """Host-side filter. Mirrors utils/error_state_iekf.py:90-165 for the
+    prediction step and :266-337 for the iterated update loop."""
+
+    def __init__(self, cfg: IEKFConfig, init_bg=None, init_ba=None, init_grav=None):
+        self.cfg = cfg
+        self.x = IEKFState()
+        if init_bg is not None:
+            self.x.bg = np.asarray(init_bg, np.float64)
+        if init_ba is not None:
+            self.x.ba = np.asarray(init_ba, np.float64)
+        if init_grav is not None:
+            self.x.grav = np.asarray(init_grav, np.float64)
+        P = np.eye(18)
+        P[9:12, 9:12] *= 1e-4
+        P[12:15, 12:15] *= 1e-3
+        P[15:18, 15:18] *= 1e-4
+        self.P = P
+        Q = np.zeros((12, 12))
+        Q[0:3, 0:3] = cfg.measurement_noise_covariance * np.eye(3)
+        Q[3:6, 3:6] = cfg.measurement_noise_covariance * np.eye(3)
+        Q[6:9, 6:9] = cfg.bias_noise_covariance * np.eye(3)
+        Q[9:12, 9:12] = cfg.bias_noise_covariance * np.eye(3)
+        self.Q = Q
+
+    # ------------------------------------------------------------ predict
+    def predict(self, acc: np.ndarray, gyro: np.ndarray, dt: float):
+        x = self.x
+        acc = np.asarray(acc, np.float64)
+        gyro = np.asarray(gyro, np.float64)
+        # motion model f (utils/error_state_iekf.py:167-174)
+        f = np.zeros(18)
+        f[0:3] = gyro - x.bg
+        f[3:6] = x.vel
+        f[6:9] = x.rot @ (acc - x.ba) + x.grav
+        # F = df/dx (:126-141), with the reference's small-angle shortcuts
+        F = np.eye(18)
+        I_dt = np.eye(3) * dt
+        F[0:3, 9:12] = -I_dt
+        F[3:6, 6:9] = I_dt
+        F[6:9, 0:3] = -x.rot @ _skew(acc - x.ba) * dt
+        F[6:9, 12:15] = -x.rot * dt
+        F[6:9, 15:18] = I_dt
+        # Fw = df/dw (:143-156)
+        Fw = np.zeros((18, 12))
+        Fw[0:3, 0:3] = -np.eye(3)
+        Fw[6:9, 3:6] = -x.rot
+        Fw[9:12, 6:9] = np.eye(3)
+        Fw[12:15, 9:12] = np.eye(3)
+        Fw *= dt
+
+        self.x = x.boxplus(f * dt)
+        P = F @ self.P @ F.T + Fw @ self.Q @ Fw.T
+        self.P = 0.5 * (P + P.T)  # keep P exactly symmetric
+
+    # ---------------------------------------------------- iterated update
+    def update_iterated(
+        self,
+        h_reduce: Callable,
+        points_imu,  # [N,3] tensor, sensor/IMU frame
+        mask,  # [N] bool tensor
+        *h_args,
+    ):
+        """h_reduce(points_imu, mask, R_f32, t_f32, *h_args) -> (S6, b6,
+        n_valid) on the device, as ``make_h_reduce_fn`` returns them (the
+        JAX reduction's fourth output, the mask's count, is counted here).
+        R and t go to the device as f32 tensors on ``mask``'s device; the
+        filter algebra stays numpy f64."""
+        cfg = self.cfg
+        dev = mask.device
+        n_total = max(int(torch.sum(mask.to(torch.int64))), 1)
+        x_propagated = self.x
+        P_inv = np.linalg.inv(self.P)
+        I = np.eye(18)
+        valid_flag = True
+        converged = False
+        S18 = np.zeros((18, 18))
+        KH = np.zeros((18, 18))
+        A_inv = self.P.copy()
+
+        for i in range(cfg.max_iteration):
+            dx_new = self.x.boxminus(x_propagated)
+            S6, b6, n_valid = h_reduce(
+                points_imu,
+                mask,
+                torch.as_tensor(self.x.rot, dtype=torch.float32, device=dev),
+                torch.as_tensor(self.x.pos, dtype=torch.float32, device=dev),
+                *h_args,
+            )
+            S6 = S6.detach().cpu().double().numpy()
+            b6 = b6.detach().cpu().double().numpy()
+            n_valid = int(n_valid)
+
+            if (
+                n_valid / n_total < cfg.min_valid_ratio
+                and i == cfg.max_iteration - 1
+            ):
+                valid_flag = False
+
+            S18[:] = 0.0
+            S18[:6, :6] = S6
+            b18 = np.zeros(18)
+            b18[:6] = b6
+
+            A_inv = np.linalg.inv(S18 + P_inv)
+            KH = A_inv @ S18  # = K @ H
+            dx = -(A_inv @ b18) + (KH - I) @ dx_new
+            # trust region: a per-iteration step beyond the frame-level
+            # catastrophic-failure bound (utils/slam_dataset.py:544-550) is
+            # never legitimate — it means (S+P⁻¹) went near-singular; scale
+            # the whole step back so the iteration stays in a sane basin
+            step_cap = 10.0
+            tran_raw = np.linalg.norm(dx[3:6])
+            if tran_raw > step_cap:
+                dx = dx * (step_cap / tran_raw)
+
+            self.x = self.x.boxplus(dx)
+            tran_m = np.linalg.norm(dx[3:6])
+            rot_deg = np.linalg.norm(dx[0:3]) * 180.0 / np.pi
+            if (
+                rot_deg < cfg.term_thre_deg
+                and tran_m < cfg.term_thre_m
+                and np.all(np.abs(dx[6:]) < cfg.eps)
+            ):
+                converged = True
+            if not valid_flag or converged:
+                break
+
+        # information-form covariance update: (I-KH)P == (S+P⁻¹)⁻¹ exactly,
+        # but the right-hand form is symmetric-PSD by construction — the
+        # product form loses definiteness in finite precision and a
+        # non-PSD P eventually makes (S+P⁻¹) indefinite, exploding dx
+        # (observed: 95 m iteration steps once P degraded)
+        self.P = 0.5 * (A_inv + A_inv.T)
+        return self.x.pose_matrix(), valid_flag
+
 
 
 def _inclusive_scan(combine, xs):
@@ -220,6 +445,7 @@ def make_cached_update_fn(
     min_valid_ratio: float = 0.2,
     mlp_leaky: bool = False,
     mlp_bf16: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
     weighted_first: bool = True,
     layer_norm: bool = False,
@@ -255,10 +481,11 @@ def make_cached_update_fn(
         if layer_norm:
             cand_feat = nm.layer_norm_feats(cand_feat)
         cand_feat = torch.where(cvalid[..., None], cand_feat, torch.zeros_like(cand_feat))
-        return cand_pos, cand_feat, cvalid
+        cand_quat = map_state.quats[safe] if rotate_vecs else None
+        return cand_pos, cand_feat, cvalid, cand_quat
 
     def dense_update(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P):
-        cand_pos, cand_feat, cvalid = candidates
+        cand_pos, cand_feat, cvalid, cand_quat = candidates
         iot = torch.arange(n_cand, device=points_imu.device)
         tie = iot[None, :] < iot[:, None]  # [C,C] j<i
 
@@ -276,7 +503,8 @@ def make_cached_update_fn(
                 )
                 rank = torch.sum(before.to(torch.int32), dim=-1)
                 kvalid = (rank < knn_k) & valid
-                kvecs = encode_vecs(vecs) if encode_vecs is not None else vecs
+                kvecs = nm.conj_rotate(cand_quat, vecs) if rotate_vecs else vecs
+                kvecs = encode_vecs(kvecs) if encode_vecs is not None else kvecs
                 kvecs = torch.where(kvalid[..., None], kvecs, torch.zeros_like(kvecs))
                 w = nm.idw_weights(cd2, kvalid, nn_count)
                 feat_vec = torch.cat([cand_feat, kvecs], -1)
@@ -321,6 +549,7 @@ def make_h_reduce_fn(
     min_nn_count: int,
     mlp_leaky: bool = False,
     mlp_bf16: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
     weighted_first: bool = True,
     layer_norm: bool = False,
@@ -339,8 +568,8 @@ def make_h_reduce_fn(
             pc = pc_map.requires_grad_(True)
             q = nm.query_feature(
                 map_state, pc, offs_t.to(pc.device), resolution, max_valid_dist2, knn_k,
-                travel_dist, cur_ts, window, True, encode_vecs=encode_vecs,
-                layer_norm=layer_norm, weighted_first=weighted_first,
+                travel_dist, cur_ts, window, True, rotate_vecs=rotate_vecs,
+                encode_vecs=encode_vecs, layer_norm=layer_norm, weighted_first=weighted_first,
             )
             pred = dec.sdf(mlp, q.feature, sdf_scale, leaky=mlp_leaky, bf16=mlp_bf16)
             if not weighted_first:
@@ -377,6 +606,7 @@ def make_update_iterated_fn(
     min_valid_ratio: float = 0.2,
     mlp_leaky: bool = False,
     mlp_bf16: bool = False,
+    rotate_vecs: bool = False,
     encode_vecs=None,
     weighted_first: bool = True,
     layer_norm: bool = False,
@@ -392,7 +622,7 @@ def make_update_iterated_fn(
         max_valid_dist2=max_valid_dist2, sdf_scale=sdf_scale,
         min_grad_norm=min_grad_norm, max_grad_norm=max_grad_norm,
         min_nn_count=min_nn_count, mlp_leaky=mlp_leaky, mlp_bf16=mlp_bf16,
-        encode_vecs=encode_vecs, weighted_first=weighted_first, layer_norm=layer_norm,
+        rotate_vecs=rotate_vecs, encode_vecs=encode_vecs, weighted_first=weighted_first, layer_norm=layer_norm,
         max_sdf_std=max_sdf_std, info_scale=info_scale,
     )
     loop_kw = _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,

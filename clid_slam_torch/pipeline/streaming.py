@@ -15,6 +15,10 @@ adjustment refines the last ``ba_frame`` poses and the map's features, and
 with ``prune_map_on`` the map is pruned and rehashed every
 ``prune_freq_frame`` frames. ``save_checkpoint``/``load_checkpoint`` write
 and read the whole state (the JAX package's file, plus the generator).
+Frames come from in-memory arrays or, with ``points=None``, from the
+config's directory of scans and IMU files (``self.dataset``, a
+``SLAMDataset`` with no host filter); ``finalize`` writes the pose files
+and ``metrics.json``.
 Every option of the JAX frame step runs, decode-then-weight
 (``weighted_first=False``), bf16 decoding (``mlp_bf16``) and the color and
 semantic heads (``color_on``, ``semantic_on``) included; as in the JAX
@@ -35,6 +39,7 @@ the frame by stage (``chip_smoke.py --profile``).
 from __future__ import annotations
 
 import functools
+import os
 import warnings
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -229,6 +234,7 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             resample_every=max(cfg.map_resample_every, cfg.iters + 10),
             max_outer=1,
             dup_independent=cfg.map_dup_independent,
+            use_pallas=cfg.map_pallas,
         )
     )
     prep_bodies = {
@@ -481,7 +487,9 @@ class StreamingSlam:
         self._ba_step = (
             make_ba_step(cfg, self.nb_offs, self.encode_vecs) if cfg.ba_freq_frame > 0 else None
         )
-        self.T_imu_lidar = np.asarray(cfg.T_imu_lidar, np.float64)
+        from .dataset import SLAMDataset
+
+        self.dataset = SLAMDataset(cfg, tracker=None, min_frames=total_frames, device=self.device)
         self.imu_max_rows = IMU_MAX_ROWS
         self._init_state()
         self.processed = 0
@@ -580,21 +588,24 @@ class StreamingSlam:
     def process_frame(
         self,
         frame_id: int,
-        points: np.ndarray,
+        points: Optional[np.ndarray] = None,
         imu_window: Optional[np.ndarray] = None,
         point_ts=None,
         draws: Optional[dict] = None,
     ):
         """One frame from in-memory arrays (sensor frame [N,3+], IMU rows
-        [k,7] of (dt, acc, gyro), optional per-point timestamps).
-        ``draws`` injects the frame's random numbers (see make_frame_step)."""
+        [k,7] of (dt, acc, gyro), optional per-point timestamps) or, with
+        ``points=None``, the scan and IMU window of ``frame_id`` read from
+        the config's directories. ``draws`` injects the frame's random
+        numbers (see make_frame_step)."""
         cfg, dev = self.cfg, self.device
-        points = np.asarray(points)[:, :3].astype(np.float32)
-        if not np.allclose(self.T_imu_lidar, np.eye(4)):
-            points = (
-                points @ self.T_imu_lidar[:3, :3].T.astype(np.float32)
-                + self.T_imu_lidar[:3, 3].astype(np.float32)
-            )
+        d = self.dataset
+        if points is None:
+            d.read_frame(frame_id)
+            imu_window = d.read_imu_window(frame_id)
+        else:
+            d.read_frame_arrays(np.asarray(points), point_ts)
+        points, point_ts = d._raw_points, d._raw_ts
         crop_max_range = cfg.max_range
         if cfg.adaptive_range_on:
             crop_max_range = adaptive_crop_range(points, cfg.max_range)
@@ -726,10 +737,11 @@ class StreamingSlam:
         self.insert_dropped = torch.tensor(dropped, dtype=torch.int64, device=self.device)
 
     def sync(self) -> dict:
-        """Materialize results on the host."""
+        """Materialize results on the host, and write the poses and travel
+        distances back into ``self.dataset``."""
         st = self.state
         n = self.processed
-        return {
+        out = {
             "odom_poses": st.odom_poses[:n].double().cpu().numpy(),
             "travel_dist": st.travel_dist[:n].double().cpu().numpy(),
             "losses": st.losses[:n].cpu().numpy(),
@@ -746,3 +758,20 @@ class StreamingSlam:
             "ba_ms": [start.elapsed_time(end) if start is not None else None
                       for _, start, end in self.ba_log],
         }
+        d = self.dataset
+        d.odom_poses[:n] = out["odom_poses"]
+        d.travel_dist[:n] = out["travel_dist"]
+        d.processed_frame = n
+        if n:
+            d.cur_pose_ref = out["odom_poses"][n - 1]
+        return out
+
+    def finalize(self, run_path: str) -> dict:
+        """``sync()``, then the pose files and ``metrics.json`` under
+        ``run_path`` (``SLAMDataset.write_results``)."""
+        os.makedirs(run_path, exist_ok=True)
+        out = self.sync()
+        result = self.dataset.write_results(run_path)
+        result["neural_points"] = out["neural_points"]
+        result["failed"] = out["failed"]
+        return result

@@ -324,3 +324,88 @@ def generate_sequence(
             imu_windows.append(rows)
     return SyntheticSequence(poses, scans, imu_windows, world)
 
+
+def write_sequence_dataset(
+    seq: SyntheticSequence, root: str, config_overrides: dict | None = None
+) -> str:
+    """Dump a synthetic sequence in the CLID converter on-disk layout
+    (dataset/converter/rosbag2dataset_parallel.py output format):
+    ``lidar/{i}.ply`` (+ per-point timestamp column), ``imu/{i}.csv``
+    (dt, ax, ay, az, gx, gy, gz with header; each value with round-trip
+    precision, so a run from the files equals one from the arrays bit for
+    bit, where the JAX writer's 9 decimals drop the low bits of small
+    rates), ``gt_poses.txt`` (TUM), and a
+    ready-to-run ``config.yaml``. Returns the config path — the file-based
+    CLI (``python -m clid_slam_torch.pipeline.slam <config>``) runs it. The
+    config sets ``eval.save_mesh``, as the JAX package's writer does; the
+    port refuses meshing until ROADMAP A14, so pass
+    ``config_overrides={"eval.save_mesh": False}`` for the port's CLI."""
+    import os
+
+    import yaml
+
+    from ..utils import io
+
+    lidar_dir = os.path.join(root, "lidar")
+    imu_dir = os.path.join(root, "imu")
+    os.makedirs(lidar_dir, exist_ok=True)
+    os.makedirs(imu_dir, exist_ok=True)
+    for i, scan in enumerate(seq.scans):
+        ts = np.linspace(0.0, 1.0, len(scan), dtype=np.float32)
+        io.write_ply(
+            os.path.join(lidar_dir, f"{i:06d}.ply"),
+            scan,
+            extra={"timestamp": ts},
+        )
+        w = seq.imu_windows[i]
+        if w is None:
+            w = np.zeros((1, 7))
+        with open(os.path.join(imu_dir, f"{i:06d}.csv"), "w") as f:
+            f.write("dt,ax,ay,az,gx,gy,gz\n")
+            for row in w:
+                f.write(",".join(repr(float(v)) for v in row) + "\n")
+    io.write_tum_poses(os.path.join(root, "gt_poses.txt"), seq.poses)
+
+    cfg = {
+        "setting": {
+            "name": "synthetic_replay",
+            "output_root": os.path.join(root, "out"),
+            "pc_path": lidar_dir,
+            "imu_path": imu_dir,
+            "pose_path": os.path.join(root, "gt_poses.txt"),
+            "deskew": False,
+        },
+        "process": {
+            "min_range_m": 0.5,
+            "max_range_m": 30.0,
+            "vox_down_m": 0.08,
+        },
+        "sampler": {
+            "local_voxel_size_m": 0.15,
+            "surface_sample_range_m": 0.25,
+            "surface_sample_n": 3,
+            "free_front_sample_n": 2,
+            "free_behind_sample_n": 1,
+        },
+        "neuralpoints": {"voxel_size_m": 0.3, "search_alpha": 0.5},
+        "loss": {"loss_weight_on": True},
+        "optimizer": {"iters": 10, "batch_size": 4096, "init_iter_ratio": 40},
+        "tracker": {"iter_n": 20, "source_vox_down_m": 0.4},
+        "eval": {"save_map": True, "save_mesh": True, "silence_log": False},
+        "tpu": {
+            "map_capacity": 1 << 15,
+            "map_hash_size": 1 << 17,
+            "local_map_capacity": 1 << 16,
+            "local_map_hash_size": 1 << 17,
+            "max_scan_points": 1 << 13,
+            "max_source_points": 1 << 11,
+            "pool_capacity": 1 << 16,
+        },
+    }
+    for k, v in (config_overrides or {}).items():
+        sect, key = k.split(".", 1)
+        cfg.setdefault(sect, {})[key] = v
+    cfg_path = os.path.join(root, "config.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cfg_path

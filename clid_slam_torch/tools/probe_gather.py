@@ -143,8 +143,10 @@ def mapper_cases(shrink: int = 1) -> List[dict]:
     rows, the tail padded with the sentinel row) and the expanded features
     out of the work slab (the batch's kNN references in batch order). Both
     index vectors are int64. The same expanded-feature gather at
-    feature_dim 6, whose rows move as single floats. ``shrink`` divides the
-    row counts."""
+    feature_dim 6, whose rows move as single floats. With ``color_on`` the
+    same two gathers move the color slab ([cap+1, feature_dim]) beside the
+    geometric one: the color work rows and their references. ``shrink``
+    divides the row counts."""
     rng = np.random.default_rng(7)
     cap, w, n_rows = (1 << 18) // shrink, 16384 * 6 // shrink, 24000 // shrink
     feats = rng.normal(0, 0.1, (cap + 1, 8)).astype(np.float32)
@@ -152,6 +154,8 @@ def mapper_cases(shrink: int = 1) -> List[dict]:
     src_rows[:n_rows] = np.sort(rng.choice(cap, n_rows, replace=False))
     work = feats[src_rows]
     local_idx = rng.integers(0, n_rows, w).astype(np.int64)
+    color = rng.uniform(0, 1, (cap + 1, 8)).astype(np.float32)
+    color[cap] = 0.0  # the sentinel row
     site = "clid_slam_torch/mapping/mapper.py single_batch_body"
     return [
         dict(variant="mapper work0", kernel="gather_rows", table=feats, idx=src_rows,
@@ -160,6 +164,10 @@ def mapper_cases(shrink: int = 1) -> List[dict]:
              replaces=site),
         dict(variant="mapper f0 feature_dim 6", kernel="gather_rows",
              table=np.ascontiguousarray(work[:, :6]), idx=local_idx, replaces=site),
+        dict(variant="mapper color work0", kernel="gather_rows", table=color, idx=src_rows,
+             replaces=site),
+        dict(variant="mapper color f0", kernel="gather_rows", table=color[src_rows],
+             idx=local_idx, replaces=site),
     ]
 
 

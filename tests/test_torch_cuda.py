@@ -841,3 +841,35 @@ def test_every_option_repeats_bit_for_bit_on_the_card():
                 if isinstance(x, torch.Tensor):
                     assert torch.equal(x, y), i
     assert not a.sync()["failed"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("driver", ["streaming", "classic"])
+def test_map_pallas_off_runs_no_fused_kernel_and_warns_nothing(driver):
+    """``map_pallas: false``: tracked frames map on the autograd loop (the
+    JAX package's loop off the Pallas path), so ``map_loop`` makes no
+    launch, and no RuntimeWarning names a reason; ``map_pallas: true``
+    launches it once per tracked frame."""
+    import warnings
+
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.pipeline.slam import SlamSystem
+
+    counts = {}
+    for flag in (False, True):
+        system, seq = _tiny_system(map_pallas=flag)
+        if driver == "classic":
+            system = SlamSystem(system.cfg, total_frames=8)
+            x = system.tracker.x
+            x.rot, x.pos = seq.poses[0][:3, :3].copy(), seq.poses[0][:3, 3].copy()
+            x.vel = seq.poses[0][:3, :3] @ np.array([3.0 * 2 * np.pi / 20.0, 0, 0])
+        run = lambda i: system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+        run(0)
+        before = ml.launches
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            for i in (1, 2, 3):
+                run(i)
+        torch.cuda.synchronize()
+        counts[flag] = ml.launches - before
+    assert counts == {False: 0, True: 3}, counts

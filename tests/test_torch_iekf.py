@@ -2,7 +2,10 @@
 candidate-cached and the re-querying iterated updates on a converted JAX
 map (poses within 2e-3, as tests/test_streaming.py holds the cached update
 to the re-query update), weighted-first and decode-then-weight with the
-weighted SDF std gate (a gate of 10 keeps the points, 0 drops them all)."""
+weighted SDF std gate (a gate of 10 keeps the points, 0 drops them all).
+Then the host f64 filter of the classic driver: ``predict`` over 200 IMU
+rows (1e-12) and ``update_iterated`` on JAX's trained cylinder room (pose
+within 1e-4, the same iteration count)."""
 
 import numpy as np
 import jax
@@ -16,6 +19,7 @@ from clid_slam_tpu.models import neural_map as jnm
 from clid_slam_tpu.odometry import iekf as jie
 from clid_slam_tpu.ops.voxel import neighbor_offsets
 from clid_slam_tpu.utils import lie as jlie
+from test_iekf import trained_scene  # noqa: F401  (JAX's trained cylinder room)
 from torch_parity import n, t
 
 
@@ -208,3 +212,68 @@ def test_decode_then_weight_updates_match_jax(cached, max_sdf_std):
         assert int(tr[5]) == int(jr[5]) == 1
         np.testing.assert_allclose(n(tr[1]), args[3], atol=1e-6)
         np.testing.assert_allclose(n(tr[0]), args[2], atol=1e-6)
+
+
+def test_host_predict_matches_jax_over_200_imu_rows():
+    """The host f64 filter of the classic driver: 200 IMU rows one at a
+    time, numpy f64 on both sides, to 1e-12."""
+    rng = np.random.default_rng(11)
+    rows = np.zeros((200, 7))
+    rows[:, 0] = 0.005
+    rows[:, 1:4] = rng.normal(size=(200, 3)) + [0.0, 0.0, 9.81]
+    rows[:, 4:7] = rng.normal(size=(200, 3)) * 0.5
+    kw = dict(init_bg=[0.01, -0.02, 0.005], init_ba=[0.05, 0.0, -0.03], init_grav=[0, 0, -9.81])
+    filters = []
+    for mod in (jie, tie):
+        f = mod.IEKF(mod.IEKFConfig(measurement_noise_covariance=0.02), **kw)
+        f.x.vel = np.array([1.0, -0.5, 0.2])
+        for r in rows:
+            f.predict(r[1:4], r[4:7], float(r[0]))
+        filters.append(f)
+    jf, tf = filters
+    for name in ("rot", "pos", "vel", "bg", "ba", "grav"):
+        np.testing.assert_allclose(getattr(tf.x, name), getattr(jf.x, name), atol=1e-12, rtol=0,
+                                   err_msg=name)
+    np.testing.assert_allclose(tf.P, jf.P, atol=1e-12, rtol=0)
+    assert np.linalg.norm(tf.x.pos) > 0.1  # the state did move
+    dx = rng.normal(size=18) * 0.1
+    np.testing.assert_allclose(tf.x.boxplus(dx).boxminus(tf.x), jf.x.boxplus(dx).boxminus(jf.x),
+                               atol=1e-12, rtol=0)
+
+
+def test_host_update_iterated_matches_jax(trained_scene):
+    """``IEKF.update_iterated`` over each package's ``make_h_reduce_fn`` on
+    JAX's trained cylinder room (tests/test_iekf.py), from a perturbed
+    start: the pose within 1e-4, the same number of iterations, the same
+    validity flag."""
+    pts, nmap, mlp, travel = trained_scene
+    kw = dict(knn_k=6, nb_offs=neighbor_offsets(2, 0.5), resolution=0.3,
+              max_valid_dist2=3.0 * 0.9**2, sdf_scale=0.055, min_grad_norm=0.5,
+              max_grad_norm=1.5, min_nn_count=6)
+    tmap = neural_map_from_numpy([np.asarray(x) for x in nmap], "cpu")
+    tmlp = mlp_from_numpy(jax.tree.map(np.asarray, mlp), "cpu")
+    jcore, tcore = jie.make_h_reduce_fn(**kw), tie.make_h_reduce_fn(**kw)
+    calls = {"jax": 0, "torch": 0}
+
+    def jh(points, mask, R, t_, *a):
+        calls["jax"] += 1
+        return jcore(nmap, mlp, points, mask, R, t_, travel, 0, 1e9)
+
+    def th(points, mask, R, t_, *a):
+        calls["torch"] += 1
+        return tcore(tmap, tmlp, points, mask, R, t_, t(travel), 0, 1e9)
+
+    dx0 = np.zeros(18)
+    dx0[0:3] = [0.0, 0.0, np.deg2rad(2.0)]
+    dx0[3:6] = [0.15, -0.1, 0.05]
+    src = np.asarray(pts[::2])
+    out = {}
+    for name, mod, h, conv in (("jax", jie, jh, jnp.asarray), ("torch", tie, th, t)):
+        f = mod.IEKF(mod.IEKFConfig(max_iteration=50))
+        f.x = f.x.boxplus(dx0)
+        out[name] = f.update_iterated(h, conv(src), conv(np.ones(len(src), bool))) + (f.P,)
+    (jp, jok, jP), (tp, tok, tP) = out["jax"], out["torch"]
+    np.testing.assert_allclose(tp, jp, atol=1e-4, rtol=0)
+    assert calls["torch"] == calls["jax"] > 1 and tok == jok is True
+    np.testing.assert_allclose(tP, jP, rtol=1e-3, atol=1e-9)
+    assert np.linalg.norm(tp[:3, 3]) < 0.05  # recovered near the true pose (identity)

@@ -53,19 +53,45 @@ def test_source_has_no_jax_import(path):
     assert not _IMPORT.search(src), path
 
 
-def test_entry_points_default_to_cuda():
+def test_classic_driver_modules_are_the_ports_own():
+    """The modules of the classic driver are files of the port (own copies
+    of the JAX package's numpy-only modules, the C++ reader included), and
+    the CLI and the synthetic writer are in the source scan above."""
+    root = os.path.join(REPO, "clid_slam_torch")
+    for rel in ("pipeline/slam.py", "pipeline/dataset.py", "pipeline/dataset_indexing.py",
+                "pipeline/control.py", "pipeline/liveview.py", "utils/io.py", "utils/plots.py",
+                "utils/observability.py", "native/__init__.py", "native/clid_native.cpp"):
+        assert os.path.isfile(os.path.join(root, rel)), rel
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"clid_slam_torch/pipeline/slam.py", "clid_slam_torch/pipeline/synthetic.py",
+            "clid_slam_torch/native/__init__.py"} <= scanned
+    with open(os.path.join(root, "native", "clid_native.cpp")) as f:
+        assert "clid_slam_tpu" not in f.read()
+
+
+def test_entry_points_default_to_cuda(tmp_path):
     from clid_slam_torch import resolve_device
+    from clid_slam_torch.pipeline.slam import SlamSystem, main, run_slam
     from clid_slam_torch.pipeline.streaming import StreamingSlam
+    from clid_slam_torch.pipeline.synthetic import generate_sequence, write_sequence_dataset
     from torch_parity import port_config, tiny_config
 
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
     else:
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            resolve_device(None)
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            StreamingSlam(port_config(tiny_config()), total_frames=4)
+        cfg_path = write_sequence_dataset(
+            generate_sequence(n_frames=2, n_azimuth=64, n_elev=8, seed=3), str(tmp_path),
+            {"eval.save_mesh": False})
+        for make in (
+            lambda: resolve_device(None),
+            lambda: StreamingSlam(port_config(tiny_config()), total_frames=4),
+            lambda: SlamSystem(port_config(tiny_config()), total_frames=4),
+            lambda: run_slam(cfg_path),
+            lambda: main([cfg_path]),
+        ):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                make()
 
 
 @pytest.mark.parametrize(

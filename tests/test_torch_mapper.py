@@ -79,16 +79,20 @@ def _close(got, want, scale=1.0):
     assert np.quantile(d, 0.99) < 2.5 * LR * scale + 1e-6
 
 
-# the single-batch bodies beside the kernel path: the autograd fallback on
-# the expanded features (a loss or a feature width the kernel does not
-# take) and the static body on the work slab (dup_independent off)
+# the single-batch bodies beside the kernel path (use_pallas, as
+# cfg.map_pallas passes it): the autograd fallback on the expanded features
+# (a loss or a feature width the kernel does not take, or use_pallas off)
+# and the static body on the work slab (dup_independent off)
 SINGLE = dict(resample_every=20, max_outer=1)
+KERNEL = dict(SINGLE, dup_independent=True, use_pallas=True)
 BODIES = {
-    "fast": dict(SINGLE, dup_independent=True),
+    "fast": KERNEL,
     "general": dict(resample_every=3),
-    "fallback_zhong": dict(SINGLE, dup_independent=True, loss_type="zhong"),
-    "fallback_feature_dim4": dict(SINGLE, dup_independent=True, feature_dim=4),
-    "fallback_feature_dim6": dict(SINGLE, dup_independent=True, feature_dim=6),
+    "fallback_zhong": dict(KERNEL, loss_type="zhong"),
+    "fallback_feature_dim4": dict(KERNEL, feature_dim=4),
+    "fallback_feature_dim6": dict(KERNEL, feature_dim=6),
+    # map_pallas off: the autograd loop on the expanded features, no warning
+    "no_pallas": dict(SINGLE, dup_independent=True),
     "static_feature_dim6": dict(SINGLE, dup_independent=False, feature_dim=6),
     "static": dict(SINGLE, dup_independent=False),
     "static_sdf_l2": dict(SINGLE, dup_independent=False, loss_type="sdf_l2"),
@@ -107,7 +111,9 @@ def _run_both(kw, iters, n_batches):
     tpool = pool_from_numpy([np.asarray(x) for x in pool], "cpu")
     tmlp = mlp_from_numpy(jax.tree.map(np.asarray, mlp), "cpu")
     geo0 = np.asarray(ms.geo_feats)
-    jres = jmp.make_mapping_fn(**kw, as_body=True)(
+    # the JAX side runs its XLA loop, as its frame step does off the TPU
+    jkw = {k: v for k, v in kw.items() if k != "use_pallas"}
+    jres = jmp.make_mapping_fn(**jkw, as_body=True)(
         ms, mlp, mlp, mlp, pool, td, 1, 1e9, key, jnp.int32(iters), jnp.float32(1.0)
     )
     tres = tmp.make_mapping_fn(**kw)(
@@ -141,7 +147,7 @@ def test_ineligible_fast_body_raises():
     """A config the fused kernel does not take (leaky ReLU) runs the
     autograd loop on the expanded features, as the JAX package's XLA loop
     does, and says so in a RuntimeWarning that names the reasons."""
-    kw = dict(MAP_KW, resample_every=20, max_outer=1, dup_independent=True, mlp_leaky=True)
+    kw = dict(KERNEL, mlp_leaky=True, **MAP_KW)
     with pytest.warns(RuntimeWarning, match="mlp_leaky_relu"):
         geo0, jres, tres = _run_both(kw, 7, 1)
     _assert_mapping_close(geo0, jres, tres)
@@ -262,7 +268,9 @@ def test_mapping_body_with_option_matches_jax(body, option):
     tpool = pool_from_numpy([np.asarray(x) for x in pool], "cpu")
     tmlps = [mlp_from_numpy(jax.tree.map(np.asarray, m), "cpu") for m in mlps]
     geo0, col0 = np.asarray(ms.geo_feats), np.asarray(ms.color_feats)
-    jres = jmp.make_mapping_fn(**kw, as_body=True)(
+    # the JAX side runs its XLA loop, as its frame step does off the TPU
+    jkw = {k: v for k, v in kw.items() if k != "use_pallas"}
+    jres = jmp.make_mapping_fn(**jkw, as_body=True)(
         ms, *mlps, pool, td, 1, 1e9, key, jnp.int32(iters), jnp.float32(1.0)
     )
     with warnings.catch_warnings():

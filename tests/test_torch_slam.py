@@ -1,0 +1,193 @@
+"""The port's classic driver against the JAX package's ``SlamSystem``: the
+JAX system's state after 2 frames (tests/test_slam_integration.py's
+sequence and seed) carried into the port's with
+``convert.classic_state_from_numpy``, then one tracked frame on both with
+JAX's random numbers: the pose within 1e-4, the same tracker iteration
+count, map size and pool size, the losses rtol 5e-2 (as
+tests/test_torch_streaming.py:176). Once on the fused kernel's path (the
+port's default ``map_pallas``, its plain version here) and once with
+``map_pallas`` off, where the port runs the JAX package's own loop, so
+the map's features agree to the mapper tests' 3 lr too. A checkpoint
+written by either package loads into the other, array for array. Then the
+CLI on a written dataset with ``--device cpu``, and the refusal of the
+mesh options (ROADMAP A14)."""
+
+import json
+import os
+
+import numpy as np
+import jax
+import pytest
+
+from clid_slam_torch.config import Config
+from clid_slam_torch.convert import classic_state_from_numpy
+from clid_slam_torch.pipeline import slam as tslam
+from clid_slam_torch.pipeline.synthetic import write_sequence_dataset
+from clid_slam_tpu.pipeline.slam import SlamSystem as JaxSystem
+from clid_slam_tpu.pipeline.synthetic import generate_sequence
+import torch_jax_draws as jd
+from torch_parity import n, port_config, tiny_config
+
+# frame 3 is not the step: 2 of its ~6,000 novelty flags flip between the
+# packages (the incidence-scaled labels of near-degenerate plane fits round
+# differently in f32, in 20-500 samples of every frame and in both drivers:
+# ROADMAP C6), which draws another replay batch; frames 1, 2 and 5 have no
+# flip
+N_JAX = 2
+LR = 0.01
+
+
+@pytest.fixture(scope="module")
+def seq():
+    return generate_sequence(n_frames=12, n_azimuth=256, n_elev=24, noise_std=0.01, seed=3)
+
+
+def _seed_filter(system, seq):
+    w = 2 * np.pi / 20.0
+    system.tracker.x.pos = seq.poses[0][:3, 3].copy()
+    system.tracker.x.rot = seq.poses[0][:3, :3].copy()
+    system.tracker.x.vel = seq.poses[0][:3, :3] @ np.array([3.0 * w, 0, 0])
+
+
+def _jax_arrays(s) -> dict:
+    """The JAX system's state as the numpy arrays classic_state_from_numpy takes."""
+    d, x = s.dataset, s.tracker.x
+    leaves = lambda tree: [np.asarray(v) for v in jax.tree_util.tree_leaves(tree)]
+    return dict(
+        map=leaves(s.map_state), local_map=leaves(s.local_map), pool=leaves(s.pool),
+        mlp=leaves(s.mlp), color_mlp=leaves(s.color_mlp), sem_mlp=leaves(s.sem_mlp),
+        iekf_rot=x.rot, iekf_pos=x.pos, iekf_vel=x.vel, iekf_bg=x.bg, iekf_ba=x.ba,
+        iekf_grav=x.grav, iekf_P=s.tracker.P, processed_frame=d.processed_frame,
+        odom_poses=d.odom_poses, travel_dist=d.travel_dist, cur_pose_ref=d.cur_pose_ref,
+        last_pose_ref=d.last_pose_ref, last_odom_tran=d.last_odom_tran,
+        stop_count=d.stop_count, stop_status=d.stop_status, lose_track=d.lose_track,
+        travel_dist_dev=np.asarray(s.travel_dist_dev),
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_run(seq, tmp_path_factory):
+    """The JAX system after N_JAX frames (its state, draws and checkpoint),
+    then after one more frame (its results)."""
+    cfg = tiny_config()
+    s = JaxSystem(cfg, total_frames=16)
+    _seed_filter(s, seq)
+    for i in range(N_JAX):
+        s.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    ckpt = str(tmp_path_factory.mktemp("jax_ckpt") / "jax.npz")
+    s.save_checkpoint(ckpt)
+    before = _jax_arrays(s)
+    _, draws = jd.frame_draws(cfg, s.key)
+    st = s.process_frame(N_JAX, seq.scans[N_JAX], seq.imu_windows[N_JAX])
+    after = dict(pose=s.dataset.odom_poses[N_JAX].copy(), iters=s._last_track_iters,
+                 count=int(s.map_state.count), pool=int(s.pool.size),
+                 losses=np.array([st.sdf_loss, st.eik_loss]), geo=np.asarray(s.map_state.geo_feats),
+                 ok=st.tracking_ok)
+    return cfg, before, draws, after, ckpt
+
+
+@pytest.mark.parametrize("map_pallas", [True, False], ids=["kernel_path", "map_pallas_off"])
+def test_tracked_frame_one_step_ahead_matches_jax(jax_run, seq, map_pallas):
+    cfg, before, draws, after, _ = jax_run
+    pcfg = port_config(cfg)
+    pcfg.map_pallas = map_pallas
+    port = tslam.SlamSystem(pcfg, total_frames=16, device="cpu")
+    classic_state_from_numpy(port, before)
+    st = port.process_frame(N_JAX, seq.scans[N_JAX], seq.imu_windows[N_JAX], draws=draws)
+    np.testing.assert_allclose(port.dataset.odom_poses[N_JAX], after["pose"], atol=1e-4)
+    assert st.track_iters == after["iters"] > 0 and st.tracking_ok == after["ok"]
+    assert int(port.map_state.count) == after["count"]
+    assert int(port.pool.size) == after["pool"]
+    np.testing.assert_allclose([st.sdf_loss, st.eik_loss], after["losses"], rtol=5e-2)
+    if not map_pallas:  # the JAX package's loop, rule for rule
+        d = np.abs(n(port.map_state.geo_feats) - after["geo"])
+        assert d.max() < 3 * LR and np.quantile(d, 0.99) < 2.5 * LR, d.max()
+
+
+def test_checkpoints_cross_load_array_for_array(jax_run, tmp_path):
+    cfg, before, _, _, jax_ckpt = jax_run
+    port = tslam.SlamSystem(port_config(cfg), total_frames=16, device="cpu")
+    port.load_checkpoint(jax_ckpt)
+    want = np.load(jax_ckpt)
+    assert port.dataset.processed_frame == N_JAX
+    ours = str(tmp_path / "port.npz")
+    port.save_checkpoint(ours)
+    got = np.load(ours)
+    assert set(want.files) <= set(got.files)
+    for k in want.files:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # and the JAX system loads the port's file
+    back = JaxSystem(cfg, total_frames=16)
+    back.load_checkpoint(ours)
+    for k, v in (("geo_feats", back.map_state.geo_feats), ("hash_table", back.map_state.hash_table),
+                 ("pool_data", back.pool.data), ("iekf_P", back.tracker.P)):
+        np.testing.assert_array_equal(np.asarray(v), want[k], err_msg=k)
+    np.testing.assert_array_equal(np.asarray(back.travel_dist_dev),
+                                  n(port.travel_dist_dev))
+
+
+def test_run_slam_cli_writes_results(tmp_path):
+    s = generate_sequence(n_frames=4, n_azimuth=256, n_elev=24, noise_std=0.01, seed=3,
+                          ramp_frames=6)
+    cfg_path = write_sequence_dataset(s, str(tmp_path / "ds"), {"eval.save_mesh": False})
+    result = tslam.main([cfg_path, "--device", "cpu"])
+    cfg = Config.load(cfg_path)
+    run = os.path.join(cfg.output_root, cfg.run_name or "run")
+    for f in ("metrics.json", "odom_poses_kitti.txt", "odom_poses_tum.txt", "map_checkpoint.npz",
+              "neural_points.ply", "time_table.csv"):
+        assert os.path.isfile(os.path.join(run, f)), f
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert metrics["frames"] == 4 and metrics == json.loads(json.dumps(result))
+    assert metrics["ate_rmse_m_noalign"] < 0.2 and metrics["neural_points"] > 500
+
+
+@pytest.mark.parametrize("option", ["save_mesh", "mesh_default_on", "sdf_default_on", "mesh_now"])
+def test_mesh_options_are_refused(tmp_path, option):
+    cfg = port_config(tiny_config())
+    cfg.output_root = str(tmp_path)
+    if option != "mesh_now":
+        setattr(cfg, option, True)
+        with pytest.raises(NotImplementedError, match="A14"):
+            tslam.SlamSystem(cfg, total_frames=4, device="cpu")
+        return
+    system = tslam.SlamSystem(cfg, total_frames=4, device="cpu")
+    os.makedirs(system.run_path, exist_ok=True)
+    with open(os.path.join(system.run_path, "control.json"), "w") as f:
+        json.dump({"mesh_now": True}, f)
+    with pytest.raises(NotImplementedError, match="A14"):
+        system.process_frame(0, np.zeros((100, 3), np.float32))
+
+
+
+@pytest.mark.parametrize("driver", ["classic", "streaming"])
+def test_run_from_files_equals_run_from_arrays(tmp_path, driver):
+    """The scans read back from the written PLY files (through the native
+    reader) and the IMU rows from the CSV files (written with round-trip
+    precision) give the trajectory of the same frames from memory, bit
+    for bit."""
+    from clid_slam_torch.pipeline.streaming import StreamingSlam
+
+    s = generate_sequence(n_frames=3, n_azimuth=256, n_elev=24, noise_std=0.01, seed=3,
+                          ramp_frames=6)
+    # a short frame-0 warm-up (4 of the config's 40 rounds) keeps this quick
+    cfg_path = write_sequence_dataset(
+        s, str(tmp_path), {"eval.save_mesh": False, "optimizer.init_iter_ratio": 4})
+    poses = []
+    for from_files in (True, False):
+        cfg = Config.load(cfg_path)
+        if driver == "classic":
+            system = tslam.SlamSystem(cfg, total_frames=8, device="cpu")
+        else:
+            system = StreamingSlam(cfg, total_frames=8, device="cpu")
+            system.seed_pose(s.poses[0][:3, :3], s.poses[0][:3, 3])
+        for i in range(3):
+            if from_files:
+                system.process_frame(i)
+            else:
+                system.process_frame(i, s.scans[i], s.imu_windows[i])
+        if driver == "streaming":
+            system.sync()
+        poses.append(system.dataset.odom_poses[:3].copy())
+    np.testing.assert_array_equal(poses[0], poses[1])
+    assert np.abs(poses[0][2] - poses[0][0]).max() > 1e-3  # the frames moved

@@ -12,7 +12,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-import torch
 
 from clid_slam_torch.convert import stream_state_from_numpy
 from clid_slam_torch.models import decoder as tdec
@@ -25,6 +24,7 @@ from clid_slam_tpu.models import neural_map as jnm
 from clid_slam_tpu.odometry import iekf as jie
 from clid_slam_tpu.pipeline.streaming import StreamingSlam as JaxSlam
 from clid_slam_tpu.pipeline.synthetic import generate_sequence
+import torch_jax_draws as jd
 from torch_parity import n, port_config, t, tiny_config
 
 N_JAX = 3
@@ -148,29 +148,9 @@ def test_port_streaming_slam_tracks(seq):
 
 def _jax_frame_draws(cfg, key):
     """The random numbers the JAX tracked frame step draws from ``key``,
-    in the port's injection format (pipeline/streaming.py:make_frame_step)."""
-    P, S = cfg.max_scan_points, cfg.all_sample_n
-    key, k_prep = jax.random.split(key)
-    k_s, k_over = jax.random.split(k_prep)
-    ks, kf, kb = jax.random.split(k_s, 3)
-    _, k_map = jax.random.split(key)
-    _, k_batch = jax.random.split(k_map)
-
-    def batch(pool):
-        k1, k2 = jax.random.split(k_batch)
-        return (
-            np.asarray(jax.random.randint(k1, (cfg.bs,), 0, max(int(pool.size), 1))),
-            np.asarray(jax.random.randint(
-                k2, (cfg.bs_new_sample,), 0, max(int(pool.new_count), 1))),
-        )
-
-    return dict(
-        sample=(np.asarray(jax.random.normal(ks, (cfg.surface_sample_n, P))),
-                np.asarray(jax.random.uniform(kf, (cfg.free_front_n, P))),
-                np.asarray(jax.random.uniform(kb, (cfg.free_behind_n, P)))),
-        append=torch.from_numpy(np.array(jax.random.uniform(k_over, (P * S + 1,)))),
-        batches=[batch],
-    )
+    in the port's injection format (pipeline/streaming.py:make_frame_step;
+    tests/torch_jax_draws.py)."""
+    return jd.frame_draws(cfg, key)[1]
 
 
 def test_tracked_frame_one_step_ahead_matches_jax(jax_run, seq):
