@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
           rows, the filter's mirror probe and K 6 selection over a whole
           scan of 32768 points, query_feature's feature rows of a 2^18-row
           map with its sentinel row at BA's 16384 and the filter's 32768
-          points), each
+          points), and one mesh chunk's (48^3 points through the probe, the
+          K 6 selection and the feature rows), each
           equal to its plain version bit for bit, with kernel, plain and
           library-call ms (and table[idx] at the mirror shapes) and the
           card's bound; then the host time of one call of each gather
@@ -48,6 +49,13 @@ Phases, each printing one JSON line:
           must probe as before) and a global prune at the median certainty
           (which drops about half the rows); in both, the survivors are the
           kept rows in order and the rebuilt hash resolves each of them;
+  mesh_large       that map meshed with the large configuration's Mesher
+          (chunk_dim 48, 0.1 m): the whole map's chunks on the device, then
+          a 20 m window around the last pose meshed and welded (the whole
+          map instead where its projected time fits 60 s): chunks, launches
+          a chunk, the device loop and the weld timed apart, vertex
+          distances to the world's surfaces, both triangle soups equal
+          under the plain gathers;
   stream_fallback  the small sequence with leaky ReLU, which the fused
           kernel does not take: 12 frames on the mapper's autograd loop;
   stream_dynba     the small configuration with the dynamic filter on every
@@ -87,7 +95,10 @@ Phases, each printing one JSON line:
           classes into the pool) and the tracked frames' single-batch mapping
           body with both heads, 10 frames: the color L1 and the semantic NLL
           at the scan's points must fall, and the color slab's gathers at the
-          mapper's shapes equal their plain versions bit for bit;
+          mapper's shapes equal their plain versions bit for bit; the
+          trained map's mesh and its vertex colors and classes equal under
+          the plain gathers, with the share of classes that match the
+          azimuth quadrant;
   classic the classic driver's CLI (``pipeline/slam.py:run_slam``) on a
           written dataset: the small configuration's widths in the config
           file, the small sequence's geometry (1024x32 beams, 25 frames)
@@ -101,10 +112,19 @@ Phases, each printing one JSON line:
           batch), the output files;
   classic_arrays  the same frames through ``process_frame(i, points, imu)``
           from memory: the trajectory equal to classic's bit for bit;
+  classic_mesh  the classic CLI again with the mesh options (local meshes
+          and SDF slices at frame 0 and every 10 frames, one mesh_now and one
+          slice_now written to the control file mid-run, mesh.ply at 0.1 m):
+          poses equal classic's bit for bit, the files written, the final
+          mesh's vertices on the room (median under 0.1 m, at least 10,000),
+          the mesh equal under the plain gathers, its time split and
+          launches a chunk; then ``python -m clid_slam_torch.tools.inspect_map``
+          on the run's checkpoint;
   classic_pgo  12 frames from the files, ``adjust_map`` by a fixed
           correction, 12 more frames on the post-PGO (rotate_vecs) queries:
           K1 once a tracked frame, ATE against the corrected ground truth
-          under 0.25 m;
+          under 0.25 m; ``finalize`` meshes the moved map in the post-PGO
+          mode, and its vertices mapped back lie on the room;
   stream_files  the bench's small sequence written to files and run by
           StreamingSlam from them (``points=None``), then ``finalize``: its
           trajectory, losses and iteration counts equal the in-memory
@@ -417,11 +437,12 @@ SMALL_YAML = {
 }
 
 
-def write_small_dataset(root, n_frames, rest_start):
+def write_small_dataset(root, n_frames, rest_start, seq=None, extra=None):
     """The small sequence written in the converter's layout with the small
-    configuration: ``rest_start`` ramps the platform up from rest over 6
-    frames (the file-based CLI boots its filter with zero velocity), else
-    the bench's own sequence. Returns (sequence, config path, the config
+    configuration (and the config entries ``extra``): ``rest_start`` ramps
+    the platform up from rest over 6 frames (the file-based CLI boots its
+    filter with zero velocity), else the bench's own sequence; ``seq``
+    reuses one made before. Returns (sequence, config path, the config
     differences from bench_cases.build_config)."""
     import dataclasses
 
@@ -429,9 +450,11 @@ def write_small_dataset(root, n_frames, rest_start):
     from clid_slam_torch.pipeline import bench_cases as bc
     from clid_slam_torch.pipeline.synthetic import generate_sequence, write_sequence_dataset
 
-    seq = (generate_sequence(n_frames=n_frames, n_azimuth=1024, n_elev=32, noise_std=0.01, seed=3,
-                             ramp_frames=6) if rest_start else bc.make_sequence(False, n_frames))
-    path = write_sequence_dataset(seq, root, SMALL_YAML)
+    if seq is None:
+        seq = (generate_sequence(n_frames=n_frames, n_azimuth=1024, n_elev=32, noise_std=0.01,
+                                 seed=3, ramp_frames=6)
+               if rest_start else bc.make_sequence(False, n_frames))
+    path = write_sequence_dataset(seq, root, {**SMALL_YAML, **(extra or {})})
     loaded, bench = Config.load(path), bc.build_config(False)
     differ = sorted(f.name for f in dataclasses.fields(loaded) if f.name not in (
         "name", "run_name", "output_root", "pc_path", "imu_path", "pose_path")
@@ -543,16 +566,22 @@ def classic_pgo_phase(device, seq, path, split=12):
     """``split`` frames from the files, then ``adjust_map`` by a fixed
     correction (tests/test_slam_integration.py:137's), then the rest of the
     frames on the post-PGO (rotate_vecs) queries: K1 still once a tracked
-    frame, ATE against the corrected ground truth under 0.25 m."""
+    frame, ATE against the corrected ground truth under 0.25 m. Then
+    ``finalize`` with ``save_mesh`` at 0.1 m: the mesh of the moved map,
+    queried in the post-PGO mode, mapped back through the correction, must
+    lie on the synthetic room (median distance under 0.1 m)."""
     from clid_slam_torch.config import Config
     from clid_slam_torch.odometry.iekf import _so3_exp
     from clid_slam_torch.ops import gather as gt
     from clid_slam_torch.ops import map_loop as ml
     from clid_slam_torch.pipeline import slam as tslam
+    from clid_slam_torch.tools.convert import _read_mesh_ply
     from clid_slam_torch.utils import metrics
 
     n = min(len(seq.scans), 2 * split)
-    system = tslam.SlamSystem(Config.load(path), device=device)
+    cfg = Config.load(path)
+    cfg.save_mesh, cfg.mc_res_m = True, 0.1
+    system = tslam.SlamSystem(cfg, device=device)
     ml.launches = 0
     gt.reset_launches()
     for i in range(split):
@@ -568,12 +597,21 @@ def classic_pgo_phase(device, seq, path, split=12):
     launches, gathers = ml.launches, dict(gt.launches)
     m = metrics.absolute_error(system.dataset.odom_poses[:n],
                                np.einsum("ij,tjk->tik", D, seq.poses[:n]), align=False)
+    t0 = time.perf_counter()
+    result = system.finalize(system.run_path)
+    mesh_s = time.perf_counter() - t0
+    v, _, _ = _read_mesh_ply(os.path.join(system.run_path, "mesh.ply"))
+    back = (v - D[:3, 3]) @ D[:3, :3]  # D^-1 v: the room's own frame
+    dist = distance_stats(seq.world, back)
     res = {"phase": "classic_pgo", "frames": n, "adjusted_after_frame": split - 1,
            "after_pgo": system.after_pgo, "ate_rmse_m": m["ate_rmse_m"],
            "are_rmse_deg": m["are_rmse_deg"], "lost_frames": lost,
            "map_loop_launches": launches, "map_loop_launches_after_pgo": launches - before_pgo,
            "tracked_frames": n - 1, "gather_rows_launches": gathers["gather_rows"],
-           "gather_lanes_launches": gathers["gather_lanes"]}
+           "gather_lanes_launches": gathers["gather_lanes"],
+           "post_pgo_mesh": {"mesher_rotate_vecs": system.mesher.query_kw["rotate_vecs"],
+                             "finalize_s": mesh_s, "mesh_vertices": result["mesh_vertices"],
+                             **dist}}
     emit(res)
     if not system.after_pgo or lost:
         raise AssertionError(f"post-PGO run: after_pgo {system.after_pgo}, lost frames {lost}")
@@ -581,6 +619,8 @@ def classic_pgo_phase(device, seq, path, split=12):
         raise AssertionError(f"map_loop launched {launches} times for {n - 1} tracked frames")
     if not m["ate_rmse_m"] < 0.25:
         raise AssertionError(f"post-PGO ATE {m['ate_rmse_m']} >= 0.25 m")
+    if not (system.mesher.query_kw["rotate_vecs"] and dist["p50_m"] < 0.1 and len(v) >= 10000):
+        raise AssertionError(f"post-PGO mesh: {res['post_pgo_mesh']}")
     return res
 
 
@@ -616,6 +656,290 @@ def stream_files_phase(device, root, reference, n_frames=25):
     if launches != n_frames - 1:
         raise AssertionError(f"map_loop launched {launches} times for {n_frames - 1} tracked frames")
     return res
+
+
+# the classic run's mesh options (classic_mesh), over SMALL_YAML: meshes and
+# slices at frame 0 and every 10 frames, the final mesh at 0.1 m
+MESH_YAML = {
+    "eval.save_mesh": True, "eval.mesh_default_on": True, "eval.mesh_freq_frame": 10,
+    "eval.sdf_default_on": True, "eval.sdf_freq_frame": 10, "eval.vis_sdf_slice_v": True,
+    "eval.mc_res_m": 0.1,
+}
+# frames before which classic_mesh writes a command to the control file
+CONTROL_AT = {5: {"mesh_now": True}, 14: {"slice_now": True}}
+
+
+def surface_distance(world, pts):
+    """Each point's distance to the nearest analytic surface of the
+    synthetic ``world``: the room's cylinder wall, its floor and ceiling,
+    the pillars (cylinders) and the boxes."""
+    p = np.asarray(pts, np.float64)
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    d = np.abs(np.hypot(x, y) - world.room_radius)
+    d = np.minimum(d, np.minimum(np.abs(z - world.floor_z), np.abs(z - world.ceil_z)))
+    for cx, cy, r in world.pillars:
+        d = np.minimum(d, np.abs(np.hypot(x - cx, y - cy) - r))
+    for cx, cy, hx, hy, z0, z1 in world.boxes:
+        q = np.abs(p - [cx, cy, (z0 + z1) / 2]) - [hx, hy, (z1 - z0) / 2]
+        box = np.linalg.norm(np.maximum(q, 0), axis=1) + np.minimum(q.max(1), 0)
+        d = np.minimum(d, np.abs(box))
+    return d
+
+
+def distance_stats(world, verts):
+    d = surface_distance(world, verts)
+    return {"vertices": len(verts), "p50_m": float(np.median(d)),
+            "p90_m": float(np.quantile(d, 0.9)), "p99_m": float(np.quantile(d, 0.99))}
+
+
+@contextlib.contextmanager
+def control_writes(cls, schedule):
+    """Write ``schedule[i]`` to the run's control file just before
+    ``cls.process_frame(i)`` (an operator steering a running CLI)."""
+    orig = cls.process_frame
+
+    def process_frame(self, frame_id, *args, **kw):
+        if frame_id in schedule:
+            os.makedirs(self.run_path, exist_ok=True)
+            with open(os.path.join(self.run_path, "control.json"), "w") as f:
+                json.dump(schedule[frame_id], f)
+        return orig(self, frame_id, *args, **kw)
+
+    cls.process_frame = process_frame
+    try:
+        yield
+    finally:
+        cls.process_frame = orig
+
+
+def counted_soup(mesher, state, mlp, pts, mc_res, **kw):
+    """``mesher.triangle_soup`` over ``pts``' AABB, guided by ``pts``, with
+    the gathers' launches set to 0 just before and read just after; returns
+    (soup, chunks, launches, seconds)."""
+    import torch
+
+    from clid_slam_torch.ops import gather as gt
+
+    gt.reset_launches()
+    t0 = time.perf_counter()
+    soup, chunks = mesher.triangle_soup(state, mlp, pts.min(0), pts.max(0), mc_res,
+                                        guide_points=pts, **kw)
+    torch.cuda.synchronize()
+    return soup, chunks, dict(gt.launches), time.perf_counter() - t0
+
+
+def weld_timed(soup, mc_res, min_cluster):
+    """``_weld_mesh`` of ``soup`` and, apart, its cluster filter: (verts,
+    tris, weld seconds without the filter, the filter's seconds)."""
+    from clid_slam_torch.mesher import _cluster_keep, _weld_mesh
+
+    t0 = time.perf_counter()
+    v, t = _weld_mesh(soup, mc_res)
+    t1 = time.perf_counter()
+    if min_cluster > 1 and len(v):
+        t = t[_cluster_keep(t, len(v), min_cluster)]
+    return v, t, t1 - t0, time.perf_counter() - t1
+
+
+def classic_mesh_phase(device, root, seq, reference_poses, reference_ate, profile=False):
+    """The classic CLI on the classic phase's sequence, written with the
+    mesh options (MESH_YAML) and steered mid-run through the control file
+    (CONTROL_AT): the trajectory and ATE must equal the classic phase's
+    bit for bit (meshing reads the map and draws no random numbers); the
+    local meshes, slices and ``mesh.ply`` must be written; the final mesh's
+    vertices must lie on the synthetic room (median distance under
+    ``mc_res_m`` over at least 10,000 vertices); meshing the final map again
+    under ``plain_gathers()`` must give the same vertices and triangles bit
+    for bit. Then the inspector's CLI on the run's checkpoint."""
+    import subprocess
+
+    from clid_slam_torch.config import Config
+    from clid_slam_torch.pipeline import slam as tslam
+    from clid_slam_torch.tools.convert import _read_mesh_ply
+
+    n_frames = len(seq.scans)
+    _, path, _ = write_small_dataset(root, n_frames, True, seq=seq, extra=MESH_YAML)
+    cfg = Config.load(path)
+    with captured_systems(tslam.SlamSystem) as seen, control_writes(tslam.SlamSystem, CONTROL_AT):
+        result = tslam.run_slam(path, device=device)
+    system = seen[0]
+    run = system.run_path
+    mesh_frames = sorted({0, *range(cfg.mesh_freq_frame - 1, n_frames, cfg.mesh_freq_frame),
+                          *(i for i, c in CONTROL_AT.items() if c.get("mesh_now"))})
+    slice_frames = sorted({0, *range(cfg.sdfslice_freq_frame - 1, n_frames, cfg.sdfslice_freq_frame),
+                           *(i for i, c in CONTROL_AT.items() if c.get("slice_now"))})
+    want = (["mesh.ply"] + [f"mesh/mesh_{i}.ply" for i in mesh_frames]
+            + [f"sdf_slice/{k}_{i}.ply" for i in slice_frames for k in ("slice", "slice_v")])
+    missing = [f for f in want if not os.path.isfile(os.path.join(run, f))]
+    mesh_ms = {st.frame_id: st.timings["mesh"] * 1e3 for st in system.stats if st.timings["mesh"]}
+
+    # the final map again: the device loop, the weld and its cluster filter
+    # apart, each chunk's launches; then the whole mesh under the plain gathers
+    n = int(system.map_state.count)
+    pts = system.map_state.positions[:n].cpu().numpy()
+    kw = dict(pad_voxel=cfg.pad_voxel, skip_top_voxel=cfg.skip_top_voxel)
+    soup, chunks, launches, soup_s = counted_soup(system.mesher, system.map_state, system.mlp, pts,
+                                                  cfg.mc_res_m, **kw)
+    v, t, weld_s, cluster_s = weld_timed(soup, cfg.mc_res_m, cfg.min_cluster_vertices)
+    recon = lambda: system.mesher.recon_aabb_mesh(
+        system.map_state, system.mlp, pts.min(0), pts.max(0), cfg.mc_res_m, cfg.pad_voxel,
+        cfg.min_cluster_vertices, guide_points=pts, skip_top_voxel=cfg.skip_top_voxel)
+    with plain_gathers():
+        pv, pt = recon()
+    fv, ft, _ = _read_mesh_ply(os.path.join(run, "mesh.ply"))
+    exact = (np.array_equal(v, pv) and np.array_equal(t, pt)
+             and np.array_equal(fv, v.astype(np.float64)) and np.array_equal(ft, t))
+    dist = distance_stats(seq.world, v)
+    poses_equal = bool(np.array_equal(system.dataset.odom_poses[:n_frames], reference_poses))
+
+    out = os.path.join(root, "inspect")
+    cli = subprocess.run(
+        [sys.executable, "-m", "clid_slam_torch.tools.inspect_map",
+         os.path.join(run, "map_checkpoint.npz"), "-m", "0.15", "--sdf-slice-height", "0",
+         "-o", out], cwd=REPO, capture_output=True, text=True, timeout=600)
+    inspect_files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    res = {"phase": "classic_mesh", "frames": n_frames, "mc_res_m": cfg.mc_res_m,
+           "ate_rmse_m": result["ate_rmse_m_noalign"], "poses_equal_classic": poses_equal,
+           "mesh_frames": mesh_frames, "slice_frames": slice_frames, "missing_files": missing,
+           "frame_mesh_ms": mesh_ms, "mesh_vertices": result.get("mesh_vertices"),
+           "final_mesh": {"chunks": chunks, "triangles_soup": len(soup), "triangles": len(t),
+                          "device_loop_s": soup_s, "weld_s": weld_s, "cluster_filter_s": cluster_s,
+                          "launches_per_chunk": {k: c / chunks for k, c in launches.items()},
+                          **dist},
+           "plain_gathers_exact": exact,
+           "inspect_map": {"rc": cli.returncode, "files": inspect_files,
+                           "stdout": cli.stdout.strip().splitlines()[-2:]}}
+    emit(res)
+    wrong = []
+    if not poses_equal or result["ate_rmse_m_noalign"] != reference_ate:
+        wrong.append("the trajectory differs from the classic phase's")
+    if missing:
+        wrong.append(f"missing {missing}")
+    if not (dist["p50_m"] < cfg.mc_res_m and len(v) >= 10000):
+        wrong.append(f"mesh off the room: {dist}")
+    if not exact:
+        wrong.append("the mesh through the kernels differs from the plain gathers' or mesh.ply")
+    if launches["gather_rows"] < 2 * chunks or launches["gather_lanes"] < 4 * chunks:
+        wrong.append(f"launches {launches} for {chunks} chunks")
+    if cli.returncode != 0 or inspect_files != ["mesh.ply", "neural_points.ply", "sdf_slice.ply"]:
+        wrong.append(f"inspect_map: rc {cli.returncode}, {inspect_files}, {cli.stderr[-2000:]}")
+    if wrong:
+        raise AssertionError(f"classic_mesh: {wrong}")
+    if profile:
+        mesh_profile(system, pts, cfg)
+    return res
+
+
+def config_mesher(cfg, system, **kw):
+    """The Mesher that ``SlamSystem`` builds for ``cfg``, for a
+    StreamingSlam ``system``'s map."""
+    from clid_slam_torch.mesher import Mesher
+    from clid_slam_torch.pipeline.streaming import _max_valid_dist2
+
+    return Mesher(knn_k=cfg.query_nn_k, nb_offs=system.nb_offs, resolution=cfg.voxel_size_m,
+                  max_valid_dist2=_max_valid_dist2(cfg), sdf_scale=cfg.sdf_scale,
+                  mesh_min_nn=cfg.mesh_min_nn, mlp_leaky=cfg.mlp_leaky_relu, mlp_bf16=cfg.mlp_bf16,
+                  feature_dim=cfg.feature_dim, encode_vecs=system.encode_vecs,
+                  weighted_first=cfg.weighted_first, layer_norm=cfg.layer_norm_on, **kw)
+
+
+def mesh_large(system, seq, n_frames, mc_res=0.1, window_m=20.0, limit_s=60.0):
+    """The large run's final map meshed at the large configuration's widths
+    (chunk_dim 48, ``mc_res`` 0.1 m). The whole map's chunks run first (the
+    device loop, timed, with its launches a chunk). Then the map points
+    within ``window_m`` (the large configuration's track_max_range) of the
+    last pose, as ``_write_local_mesh`` cuts its window, are meshed and
+    welded, the weld and its cluster filter timed apart. If the whole map's
+    device loop and its weld, projected from the window's weld rate a soup
+    triangle, fit in ``limit_s``, the whole soup is welded instead. Vertex
+    distances to the world's surfaces of the mesh kept, and again with the
+    vertices moved by the last pose's error (truth times the inverse of the
+    estimate: the map around the last pose was built at poses that carry
+    about that error, so this part is the trajectory's, not the mesher's);
+    both triangle soups
+    (which the weld turns into the mesh) again under ``plain_gathers()``:
+    equal bit for bit."""
+    cfg, st = system.cfg, system.state
+    mesher = config_mesher(cfg, system, chunk_dim=48)
+    n = int(st.map_state.count)
+    pts = st.map_state.positions[:n].cpu().numpy()
+    center = st.odom_poses[n_frames - 1, :3, 3].cpu().numpy()
+    near = pts[np.linalg.norm(pts - center, axis=-1) < window_m]
+    kw = dict(pad_voxel=cfg.pad_voxel, skip_top_voxel=cfg.skip_top_voxel)
+    soups, exact = {}, True
+    for name, guide in (("whole", pts), ("window", near)):
+        soup, chunks, launches, soup_s = counted_soup(mesher, st.map_state, st.mlp, guide, mc_res,
+                                                      **kw)
+        with plain_gathers():
+            plain, _ = mesher.triangle_soup(st.map_state, st.mlp, guide.min(0), guide.max(0),
+                                            mc_res, guide_points=guide, **kw)
+        exact &= bool(np.array_equal(soup, plain))
+        soups[name] = dict(soup=soup, chunks=chunks, guide_points=len(guide),
+                           triangles_soup=len(soup), device_loop_s=soup_s,
+                           ms_per_chunk=soup_s / chunks * 1e3,
+                           launches_per_chunk={k: c / chunks for k, c in launches.items()})
+        del plain
+    v, t, weld_s, cluster_s = weld_timed(soups["window"]["soup"], mc_res, cfg.min_cluster_vertices)
+    rate = (weld_s + cluster_s) / len(soups["window"]["soup"])
+    whole = soups["whole"]
+    whole["projected_s"] = whole["device_loop_s"] + rate * whole["triangles_soup"]
+    meshed = "whole" if whole["projected_s"] <= limit_s else "window"
+    if meshed == "whole":
+        v, t, weld_s, cluster_s = weld_timed(whole["soup"], mc_res, cfg.min_cluster_vertices)
+    for d in soups.values():
+        del d["soup"]
+    err = seq.poses[n_frames - 1] @ np.linalg.inv(st.odom_poses[n_frames - 1].cpu().double().numpy())
+    res = {"phase": "mesh_large", "map_points": n, "mc_res_m": mc_res, "chunk_dim": 48,
+           "window_m": window_m, "limit_s": limit_s, "meshed": meshed, **soups,
+           "triangles": len(t), "weld_s": weld_s, "cluster_filter_s": cluster_s,
+           "mesh_s": soups[meshed]["device_loop_s"] + weld_s + cluster_s,
+           **distance_stats(seq.world, v),
+           "corrected_by_last_pose_error": distance_stats(seq.world, v @ err[:3, :3].T + err[:3, 3]),
+           "plain_gathers_exact": exact}
+    emit(res)
+    if not exact or len(v) == 0:
+        raise AssertionError(f"mesh_large: exact {exact}, {len(v)} vertices")
+    for name, d in soups.items():
+        if d["launches_per_chunk"]["gather_rows"] < 2 or d["launches_per_chunk"]["gather_lanes"] < 4:
+            raise AssertionError(f"mesh_large {name}: launches a chunk {d['launches_per_chunk']}")
+    return res
+
+
+def mesh_profile(system, pts, cfg):
+    """torch.profiler over the device loop of the classic run's final mesh:
+    device ms by op and by launch span (``mesh.query``, ``mesh.decode``,
+    ``mesh.marching``, ``mesh.compaction``), the busy share of the loop,
+    then the host ms of the weld and of its cluster filter (union-find)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kw = dict(pad_voxel=cfg.pad_voxel, skip_top_voxel=cfg.skip_top_voxel)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        soup, chunks = system.mesher.triangle_soup(system.map_state, system.mlp, pts.min(0),
+                                                   pts.max(0), cfg.mc_res_m, guide_points=pts, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    self_dev_ms = lambda e: getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == cuda and not is_stage(e.key)),
+                     key=self_dev_ms, reverse=True)
+    busy_ms = sum(self_dev_ms(e) for e in kernels)
+    by_op = [{"op": e.key[:80], "device_ms": self_dev_ms(e), "calls": e.count}
+             for e in sorted((e for e in prof.key_averages() if e.device_type != cuda
+                              and e.key.startswith("aten::") and self_dev_ms(e) > 0),
+                             key=self_dev_ms, reverse=True)[:15]]
+    spans, hand = launch_attribution(prof, 1)
+    _, _, weld_s, cluster_s = weld_timed(soup, cfg.mc_res_m, cfg.min_cluster_vertices)
+    emit({"phase": "profile_mesh", "chunks": chunks, "triangles_soup": len(soup),
+          "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+          "device_ms_by_span": spans, "hand_kernels_by_span": hand,
+          "top_kernels": [{"name": e.key[:80], "device_ms": self_dev_ms(e), "calls": e.count}
+                          for e in kernels[:15]],
+          "device_ms_by_op": by_op, "host_weld_ms": weld_s * 1e3,
+          "host_union_find_ms": cluster_s * 1e3})
 
 
 @contextlib.contextmanager
@@ -759,7 +1083,12 @@ def color_sem_map(device, n_frames=10):
     both must fall from the first frame to the last. Then the color slab's
     gathers at the mapper's shapes (its work rows, [2^18+1, 8] by 98304,
     and their expanded references) through the kernel and through its plain
-    version: equal bit for bit."""
+    version: equal bit for bit. Last, the trained map's mesh (0.1 m) and its
+    vertices' colors and classes (``estimate_vertex_colors`` with the
+    1-channel doubling to gray, ``estimate_vertex_sem``) through the
+    kernels and under ``plain_gathers()``: equal bit for bit; the share of
+    the kept vertices whose class is the azimuth quadrant the scan was
+    labelled by is printed."""
     import torch
 
     from clid_slam_torch.mapping import mapper as mp
@@ -827,6 +1156,24 @@ def color_sem_map(device, n_frames=10):
     gather_ms = tml.eager_ms(lambda: gt.gather_rows(slab, c.src_rows), reps=50)
     plain_ms = tml.eager_ms(lambda: gt.gather_rows_reference(slab, c.src_rows), reps=50)
     labelled = int(((pool.data[:, 6] > 0) & pool.valid).sum())
+    # the trained map's mesh, and its vertices' colors and classes
+    mesher = config_mesher(cfg, system)
+    live = map_state.positions[: int(map_state.count)].cpu().numpy()
+    v, _ = mesher.recon_aabb_mesh(map_state, mlps[0], live.min(0), live.max(0), 0.1, cfg.pad_voxel,
+                                  cfg.min_cluster_vertices, guide_points=live,
+                                  skip_top_voxel=cfg.skip_top_voxel)
+    attrs = lambda: (mesher.estimate_vertex_colors(map_state, mlps[1], v, cfg.color_channel),
+                     *mesher.estimate_vertex_sem(map_state, mlps[2], v))
+    gt.reset_launches()
+    vcolor, vcls, vkeep = attrs()
+    attr_launches = dict(gt.launches)
+    with plain_gathers():
+        plain_attrs = attrs()
+    attrs_exact = all(np.array_equal(a, b) for a, b in zip((vcolor, vcls, vkeep), plain_attrs))
+    R, tr = np.asarray(seq.poses[0][:3, :3]), np.asarray(seq.poses[0][:3, 3])
+    local = (v - tr) @ R  # the sensor frame the scan was labelled in
+    vaz = np.arctan2(local[:, 1], local[:, 0]) + np.pi
+    quadrant = np.minimum(vaz // (np.pi / 2), 3).astype(np.int32) + 1
     res = {"phase": "color_sem_map", "frames": n_frames, "points": len(pts),
            "pool_rows_labelled": labelled, "neural_points": int(map_state.count),
            "ms_per_frame": ms, "color_l1": color_l1, "sem_nll": sem_nll,
@@ -836,7 +1183,12 @@ def color_sem_map(device, n_frames=10):
            "gather_lanes_launches": gathers["gather_lanes"],
            "color_slab_gather": {"table": list(slab.shape), "idx": list(c.src_rows.shape),
                                  "refs": list(c.local_idx.shape), "exact": exact,
-                                 "ms": gather_ms, "plain_ms": plain_ms}}
+                                 "ms": gather_ms, "plain_ms": plain_ms},
+           "mesh_vertex_attributes": {
+               "vertices": len(v), "kept": int(vkeep.sum()), "exact": attrs_exact,
+               "launches": attr_launches, "gray": bool(np.array_equal(vcolor[:, 0], vcolor[:, 2])),
+               "class_matches_quadrant_share": float((vcls == quadrant)[vkeep].mean())
+               if vkeep.any() else None}}
     emit(res)
     wrong = []
     if not (np.isfinite(color_l1).all() and np.isfinite(sem_nll).all()):
@@ -847,6 +1199,8 @@ def color_sem_map(device, n_frames=10):
         wrong.append(f"semantic NLL {sem_nll[0]} -> {sem_nll[-1]} did not fall")
     if not exact:
         wrong.append("the color slab's gathers differ from their plain versions")
+    if not (attrs_exact and len(v) > 0 and vkeep.any()):
+        wrong.append(f"vertex attributes: {res['mesh_vertex_attributes']}")
     if launches != 0 or gathers["gather_rows"] < 4 * n_frames or labelled == 0:
         wrong.append(f"launches {launches} map_loop, {gathers}; labelled rows {labelled}")
     if wrong:
@@ -922,8 +1276,9 @@ def prune_check(system, n_frames):
 
 
 def is_stage(name):
-    """The profiler ranges of StreamingSlam's stages: ``frame.*`` and ``ba``."""
-    return name.startswith("frame.") or name == "ba"
+    """The profiler ranges of StreamingSlam's stages (``frame.*`` and
+    ``ba``) and of the Mesher's launch spans (``mesh.*``)."""
+    return name.startswith(("frame.", "mesh.")) or name == "ba"
 
 
 def launch_attribution(prof, n_profiled):
@@ -1118,8 +1473,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile 5 steady frames of a fresh small run and of a "
-                    "fresh 60-frame large run, the last 10 frames of stream_dynba's and "
-                    "the last 5 of each option phase's")
+                    "fresh 60-frame large run, the last 10 frames of stream_dynba's, "
+                    "the last 5 of each option phase's and classic_mesh's final mesh")
     args = ap.parse_args()
 
     import torch
@@ -1159,9 +1514,11 @@ def main():
     gather_table, probe_launches = gather_phase(device)
 
     small, small_system = stream_phase("stream", False, 25, 10, device)
-    large, large_system = stream_phase("stream_large", True, 200, 10, device)
+    large_seq = bench_cases.make_sequence(True, 200)
+    large, large_system = stream_phase("stream_large", True, 200, 10, device, seq=large_seq)
     prune_check(large_system, 200)
-    del large_system
+    mesh_large(large_system, large_seq, 200)
+    del large_system, large_seq
     fallback = stream_phase("stream_fallback", False, 12, 10, device, fused=False,
                             mlp_leaky_relu=True)[0]
     dynba_kw = dict(dynamic_filter_on=True, ba_frame=20, ba_freq_frame=10)
@@ -1182,7 +1539,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         classic, classic_seq, classic_cfg, classic_system = classic_phase(device, tmp)
         classic_arrays_phase(device, classic_seq, classic_cfg, classic_system)
+        classic_poses = classic_system.dataset.odom_poses[: len(classic_seq.scans)].copy()
         del classic_system
+        classic_mesh_phase(device, os.path.join(tmp, "mesh"), classic_seq, classic_poses,
+                           classic["ate_rmse_m"], profile=args.profile)
         pgo = classic_pgo_phase(device, classic_seq, classic_cfg)
         files = stream_files_phase(device, os.path.join(tmp, "bench"), small_system)
     del small_system
@@ -1220,12 +1580,14 @@ def main():
             dict(by_path("gather_rows_launches"), probe=probe_launches["gather_rows"]),
             other_variants=["mirror mapper probe", "mapper color work0", "mapper color f0",
                             "BA pose gather", "mirror filter probe",
-                            "query feats BA", "query feats filter"],
+                            "query feats BA", "query feats filter", "mirror mesh probe",
+                            "query feats mesh"],
         ),
         gather_kernel_entry(
             "gather_lanes", gather_table, "select mapper d2s", large["gather_lanes_launches"],
             dict(by_path("gather_lanes_launches"), probe=probe_launches["gather_lanes"]),
-            other_variants=["K4 gather_b"] + [f"select {w} {s}" for w in ("mapper", "tracker", "filter")
+            other_variants=["K4 gather_b"] + [f"select {w} {s}"
+                                               for w in ("mapper", "tracker", "filter", "mesh")
                                                for s in ("d2s", "h", "pvalid", "mir")][1:],
         ),
         gather_kernel_entry("gather_cols", gather_table, "K7 make_c",

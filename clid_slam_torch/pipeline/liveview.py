@@ -6,8 +6,8 @@ Capability analog of the reference's Open3D GUI process
 SDF slices / trajectory; gui/gui_utils.py:12-132 VisPacket transport over
 an mp.Queue with latest-wins draining, :166-177). A card host is often headless,
 so instead of an in-process window the pipeline PUBLISHES the same packet
-content over TCP; the JAX package's `tools/live_viewer.py` (run on any
-workstation with open3d; its port is ROADMAP A18) renders it. The control half of the reference's
+content over TCP; `python -m clid_slam_torch.tools.live_viewer` (run on any
+workstation with open3d) renders it. The control half of the reference's
 GUI loop (pause / mesh cadence — gui_utils.ControlPacket) already exists
 as the file-based ControlChannel (pipeline/control.py).
 

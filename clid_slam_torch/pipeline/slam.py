@@ -14,9 +14,14 @@ the single-batch body with ``use_pallas=cfg.map_pallas`` (the fused kernel
 every iteration (``iekf.make_update_iterated_fn``). After ``adjust_map``
 every map query runs in the post-PGO mode (``rotate_vecs=True``).
 
-Meshing and SDF slices (ROADMAP A14) are not ported: the system refuses
-``save_mesh``, ``mesh_default_on`` and ``sdf_default_on``, and the control
-channel's ``mesh_now`` and ``slice_now``, with ``NotImplementedError``.
+Meshing (``mesher.py``): ``mesh_default_on`` writes a local mesh around the
+pose every ``mesh_freq_frame`` frames and ``sdf_default_on`` an SDF slice
+every ``sdfslice_freq_frame`` (``vis_sdf_slice_v`` adds the vertical one),
+the control channel's ``mesh_now`` and ``slice_now`` once, and
+``finalize`` writes ``mesh.ply`` of the whole map with ``save_mesh`` (its
+vertices colored, or labelled with the free-space vertices dropped, when
+the color or semantic head is on). Their time is ``FrameStats``'
+``"mesh"`` entry.
 
 CLI: ``python -m clid_slam_torch.pipeline.slam config.yaml [dataset] [seq]
 [seed] [--device cpu]`` (the card unless ``--device`` says otherwise).
@@ -41,6 +46,7 @@ from ..mapping import pool as pl
 from ..mapping import prep as prp
 from ..mapping.bundle_adjustment import make_ba_fn
 from ..mapping.dynamic_filter import make_dynamic_filter_fn
+from ..mesher import SEM_KITTI_COLORS, Mesher, filter_mesh_vertices
 from ..models import decoder as dec
 from ..models import local_map as lm
 from ..models import neural_map as nm
@@ -51,9 +57,6 @@ from ..utils import io
 from ..utils.transforms import transform_points
 from .dataset import SLAMDataset
 from .streaming import _max_valid_dist2, mapping_kwargs, prep_kwargs
-
-_MESH_TODO = "meshing and SDF slices are not ported yet (ROADMAP A14)"
-
 
 def _mlp_arrays(prefix: str, mlp: dec.MLPParams) -> dict:
     """Flatten an MLPParams (any depth) into npz-friendly named arrays."""
@@ -95,10 +98,6 @@ class SlamSystem:
     the CPU."""
 
     def __init__(self, cfg: Config, total_frames: int = 0, device=None):
-        if cfg.save_mesh or cfg.mesh_default_on or cfg.sdf_default_on:
-            raise NotImplementedError(
-                f"{_MESH_TODO}: turn off eval.save_mesh, mesh_default_on and sdf_default_on"
-            )
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         # one generator for every draw, seeded as StreamingSlam's, so the
@@ -165,7 +164,7 @@ class SlamSystem:
         self.run_path = os.path.join(cfg.output_root, cfg.run_name or "run")
         self._build_query_fns(rotate_vecs=False)
         self.stats: list = []
-        # runtime steering (pause / stop / cadence overrides) — the headless
+        # runtime steering (pause / mesh-now / cadence overrides) — the headless
         # ControlPacket equivalent (gui/gui_utils.py:180-220)
         from .control import ControlChannel
 
@@ -238,6 +237,21 @@ class SlamSystem:
             term_thre_m=cfg.reg_term_thre_m,
             stagnation_iter=cfg.stagnation_iter,
             **track_kw,
+        )
+        self.mesher = Mesher(
+            knn_k=cfg.query_nn_k,
+            nb_offs=self.nb_offs,
+            resolution=cfg.voxel_size_m,
+            max_valid_dist2=self.max_valid_dist2,
+            sdf_scale=cfg.sdf_scale,
+            mesh_min_nn=cfg.mesh_min_nn,
+            mlp_leaky=cfg.mlp_leaky_relu,
+            mlp_bf16=cfg.mlp_bf16,
+            feature_dim=cfg.feature_dim,
+            rotate_vecs=rotate_vecs,
+            encode_vecs=self.encode_vecs,
+            weighted_first=cfg.weighted_first,
+            layer_norm=cfg.layer_norm_on,
         )
         self._ba_fn = None
         if cfg.ba_freq_frame > 0:
@@ -449,8 +463,6 @@ class SlamSystem:
         ctl = self.control.poll()
         if ctl.stop:
             self.stop_requested = True
-        if ctl.mesh_now or ctl.slice_now:
-            raise NotImplementedError(f"control channel asked for a mesh or slice: {_MESH_TODO}")
         if "mesh_res_m" in ctl.overrides:
             cfg.mc_res_m = float(ctl.overrides["mesh_res_m"])
         if "mesh_freq_frame" in ctl.overrides:
@@ -522,6 +534,19 @@ class SlamSystem:
         self._sync()
         t4 = time.perf_counter()
 
+        # periodic in-loop reconstruction artifacts (the reference's
+        # slam.py:247-321 ships these to its GUI; headless, PLY files)
+        mesh_now = ctl.mesh_now or (
+            cfg.mesh_default_on and (frame_id == 0 or (frame_id + 1) % cfg.mesh_freq_frame == 0)
+        )
+        slice_now = ctl.slice_now or (
+            cfg.sdf_default_on and (frame_id == 0 or (frame_id + 1) % cfg.sdfslice_freq_frame == 0)
+        )
+        if mesh_now:
+            self._write_local_mesh(frame_id)
+        if slice_now:
+            self._write_sdf_slice(frame_id)
+        t_mesh = time.perf_counter() - t4 if mesh_now or slice_now else 0.0
         if cfg.log_freq_frame > 0 and (frame_id + 1) % cfg.log_freq_frame == 0:
             # periodic odometry log (utils/slam_dataset.py:664-682)
             os.makedirs(os.path.join(self.run_path, "pose_log"), exist_ok=True)
@@ -535,9 +560,9 @@ class SlamSystem:
             "tracking": t2 - t1,
             "map_prep": t3 - t2,
             "map_opt": t4 - t3,
-            "mesh": 0.0,
+            "mesh": t_mesh,
         }
-        d.time_table.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, 0.0])
+        d.time_table.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t_mesh])
         d.processed_frame += 1
         self.stats.append(st)
         self.metrics_logger.log_frame(
@@ -560,6 +585,53 @@ class SlamSystem:
                     frame_id, self.map_state.positions[:cnt].cpu().numpy()
                 )
         return st
+
+    # ------------------------------------------------- in-loop vis artifacts
+    def _write_local_mesh(self, frame_id: int):
+        """Local-window mesh around the current pose (the reference's
+        vis_mesh path, slam.py:247-276, chunked from map points)."""
+        cfg = self.cfg
+        n = int(self.map_state.count)
+        if n == 0:
+            return
+        pts = self.map_state.positions[:n].cpu().numpy()
+        center = self.dataset.cur_pose_ref[:3, 3]
+        local = pts[np.linalg.norm(pts - center, axis=-1) < cfg.max_range]
+        if len(local) == 0:
+            return
+        v, t = self.mesher.recon_aabb_mesh(
+            self.map_state, self.mlp, local.min(0), local.max(0), cfg.mc_res_m, cfg.pad_voxel,
+            cfg.min_cluster_vertices, guide_points=local, skip_top_voxel=cfg.skip_top_voxel,
+        )
+        if len(v):
+            os.makedirs(os.path.join(self.run_path, "mesh"), exist_ok=True)
+            io.write_ply_mesh(os.path.join(self.run_path, "mesh", f"mesh_{frame_id}.ply"), v, t)
+
+    def _write_sdf_slice(self, frame_id: int):
+        """Horizontal SDF slice (reference slam.py:293-308 semantics: half
+        max_range extent at pose height + slice offset), plus the vertical
+        y-z slice through the pose when vis_sdf_slice_v is set
+        (utils/mesher.py:246-279)."""
+        cfg = self.cfg
+        center = self.dataset.cur_pose_ref[:3, 3]
+        extent = cfg.max_range / 2.0
+        slices = [("slice", self.mesher.sdf_slice(
+            self.map_state, self.mlp, center, extent, float(center[2]) + cfg.sdf_slice_height,
+            cfg.vis_sdf_res_m,
+        ))]
+        if cfg.vis_sdf_slice_v:
+            slices.append(("slice_v", self.mesher.sdf_slice_vertical(
+                self.map_state, self.mlp, center, extent, float(center[0]), cfg.vis_sdf_res_m,
+            )))
+        for name, (pts, sdf, ok) in slices:
+            if not ok.any():
+                continue
+            os.makedirs(os.path.join(self.run_path, "sdf_slice"), exist_ok=True)
+            bound = cfg.surface_sample_range_m * 4.0
+            c = np.clip((sdf[ok] + bound) / (2 * bound), 0, 1)
+            colors = np.stack([c, np.zeros_like(c), 1.0 - c], -1)
+            io.write_ply(os.path.join(self.run_path, "sdf_slice", f"{name}_{frame_id}.ply"),
+                         pts[ok], colors=colors)
 
     # ---------------------------------------------------------------- BA
     def _bundle_adjust(self, frame_id: int):
@@ -601,6 +673,25 @@ class SlamSystem:
 
                 colors, _ = feature_pca_colors(self.map_state.geo_feats[:n].cpu().numpy())
             io.write_ply(os.path.join(run_path, "neural_points.ply"), pts, colors=colors)
+        if cfg.save_mesh and n > 0:
+            pts = self.map_state.positions[:n].cpu().numpy()
+            v, t = self.mesher.recon_aabb_mesh(
+                self.map_state, self.mlp, pts.min(0), pts.max(0), cfg.mc_res_m, cfg.pad_voxel,
+                cfg.min_cluster_vertices, guide_points=pts, skip_top_voxel=cfg.skip_top_voxel,
+            )
+            colors = None
+            if cfg.semantic_on:
+                # semantic vertex labels; free-space vertices dropped
+                # (utils/mesher.py:401-423 semantics)
+                labels, keep = self.mesher.estimate_vertex_sem(self.map_state, self.sem_mlp, v)
+                v, t, kept = filter_mesh_vertices(v, t, keep)
+                colors = SEM_KITTI_COLORS[np.clip(labels[kept], 0, len(SEM_KITTI_COLORS) - 1)]
+            elif cfg.color_on:
+                colors = self.mesher.estimate_vertex_colors(
+                    self.map_state, self.color_mlp, v, cfg.color_channel
+                )
+            io.write_ply_mesh(os.path.join(run_path, "mesh.ply"), v, t, colors=colors)
+            result["mesh_vertices"] = len(v)
         if cfg.save_merged_pc and self.dataset.total_pc_count > 0:
             out = self.dataset.write_merged_point_cloud(run_path)
             if out:

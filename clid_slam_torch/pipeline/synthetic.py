@@ -337,9 +337,8 @@ def write_sequence_dataset(
     rates), ``gt_poses.txt`` (TUM), and a
     ready-to-run ``config.yaml``. Returns the config path — the file-based
     CLI (``python -m clid_slam_torch.pipeline.slam <config>``) runs it. The
-    config sets ``eval.save_mesh``, as the JAX package's writer does; the
-    port refuses meshing until ROADMAP A14, so pass
-    ``config_overrides={"eval.save_mesh": False}`` for the port's CLI."""
+    config sets ``eval.save_mesh``, as the JAX package's writer does
+    (``config_overrides={"eval.save_mesh": False}`` skips the final mesh)."""
     import os
 
     import yaml

@@ -25,7 +25,8 @@ back-to-back launches, so these can lie under the bound. With
 ``--device cpu`` the plain versions run and no time is printed.
 
 ``--main-path`` adds the shapes at which the main path gathers
-(``mirror_cases``, ``mapper_cases``, ``selection_cases``, ``dynba_cases``):
+(``mirror_cases``, ``mapper_cases``, ``selection_cases``, ``dynba_cases``,
+``mesh_cases``):
 the hash mirrors, [2^22, 4] and
 [2^21, 4] tables of (x, y, z, travel) rows indexed by the neighbour-cell
 buckets of a synthetic frame's points as the neural map's probe, the
@@ -40,7 +41,9 @@ over as the path hands them, the first K columns of the whole sort, rows
 81 apart; ``torch.gather(1)``, the library call, is what the port ran
 there before), and those of the dynamic filter and BA (``dynba_cases``:
 BA's window-pose gather, the filter's mirror probe and selection over a
-whole scan, and ``query_feature``'s feature rows at both). ``--host-cost`` adds the host microseconds of each wrapper
+whole scan, and ``query_feature``'s feature rows at both), and those of
+one mesh chunk (``mesh_cases``: 48^3 grid points through the probe, the
+selection and the feature rows). ``--host-cost`` adds the host microseconds of each wrapper
 call and of each part of a launch, over 10k calls on the card.
 """
 
@@ -289,25 +292,9 @@ def dynba_cases(shrink: int = 1) -> List[dict]:
 
     world, table = _frame(shrink)
     rng = np.random.default_rng(8)
-    cap = (1 << 18) // shrink
     scan = torch.from_numpy(world[: 32768 // shrink])
     samples = torch.from_numpy(_pick(world, rng, 16384 // shrink, 0.1))
-    buckets, first = np.unique(_buckets(world, np.zeros((1, 3), np.int32), 0.4, table.shape[0]),
-                               return_index=True)
-    hash_rows = np.full(table.shape[0], -1, np.int64)
-    hash_rows[buckets[np.argsort(first)]] = np.arange(buckets.size) % cap
-    feats = rng.normal(0, 0.1, (cap + 1, 8)).astype(np.float32)
-
-    def feature_rows(pts):  # query_feature's ``safe`` for the first K 6 picks
-        from ..models.neural_map import dedupe_mask
-
-        d2s, h, valid, _, order = _select(pts, table)
-        sel = order[:, :6]
-        h_sel = torch.gather(h, 1, sel)
-        rows = torch.from_numpy(hash_rows)[h_sel]
-        ok = torch.gather(valid, 1, sel) & ~dedupe_mask(h_sel) & (rows >= 0)
-        return torch.where(ok, rows, torch.full_like(rows, cap)).reshape(-1).numpy()
-
+    feats, feature_rows = _map_rows(world, table, shrink, rng)
     poses = np.tile(np.eye(4, dtype=np.float32), (20, 1, 1))
     poses[:, :3, 3] = rng.normal(0, 1.0, (20, 3))
     ts = rng.integers(0, 40, 16384 // shrink)
@@ -324,6 +311,63 @@ def dynba_cases(shrink: int = 1) -> List[dict]:
              idx=feature_rows(samples), replaces=query + ba + ")"),
         dict(variant="query feats filter", kernel="gather_rows", table=feats,
              idx=feature_rows(scan), replaces=query + flt + ")"),
+    ]
+
+
+def _map_rows(world, table, shrink, rng):
+    """The feature slab of a 2^18-row map (``/ shrink``) with its sentinel
+    row, from ``rng``, and ``feature_rows(pts)``: ``query_feature``'s
+    ``safe`` rows for the first K 6 picks of ``pts`` in the mirror
+    ``table`` (the map row of each pick, the sentinel row where a pick is
+    invalid, a duplicate or empty; map rows numbered in the order the scan
+    ``world`` first reaches their bucket, as the insert numbers them)."""
+    from ..models.neural_map import dedupe_mask
+
+    cap = (1 << 18) // shrink
+    buckets, first = np.unique(_buckets(world, np.zeros((1, 3), np.int32), 0.4, table.shape[0]),
+                               return_index=True)
+    hash_rows = np.full(table.shape[0], -1, np.int64)
+    hash_rows[buckets[np.argsort(first)]] = np.arange(buckets.size) % cap
+    feats = rng.normal(0, 0.1, (cap + 1, 8)).astype(np.float32)
+
+    def feature_rows(pts):
+        d2s, h, valid, _, order = _select(pts, table)
+        sel = order[:, :6]
+        h_sel = torch.gather(h, 1, sel)
+        rows = torch.from_numpy(hash_rows)[h_sel]
+        ok = torch.gather(valid, 1, sel) & ~dedupe_mask(h_sel) & (rows >= 0)
+        return torch.where(ok, rows, torch.full_like(rows, cap)).reshape(-1).numpy()
+
+    return feats, feature_rows
+
+
+def mesh_cases(shrink: int = 1) -> List[dict]:
+    """``gather_rows`` and ``gather_lanes`` at the shapes that one mesh
+    chunk gives them (``mesher.py``: chunk_dim 48, so 48^3 = 110592 grid
+    points through ``query_feature``; the small configuration's 0.1 m
+    marching resolution, 0.4 m voxels, K 6): the chunk's hash-mirror probe
+    ([2^22, 4] by its points' 81 neighbour cells), its kNN selection (K 6
+    of 81, the four sources) and its feature rows ([2^18+1, 8] by 110592 x
+    6). The chunk is the one centred on the first scan's first point, so
+    its grid crosses the wall there. ``shrink`` divides the points (the
+    first of the chunk's grid), the map's rows and the mirror's."""
+    from ..ops.voxel import neighbor_offsets
+
+    world, table = _frame(shrink)
+    feats, feature_rows = _map_rows(world, table, shrink, np.random.default_rng(9))
+    cd, res = 48, 0.1
+    r = np.arange(cd, dtype=np.float32)
+    grid = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    origin = (world[0] - (cd - 1) * res / 2).astype(np.float32)
+    pts = (origin + grid * np.float32(res))[: cd**3 // shrink]
+    nm, by = "clid_slam_torch/models/neural_map.py", "(clid_slam_torch/mesher.py query_chunk)"
+    return [
+        dict(variant="mirror mesh probe", kernel="gather_rows", table=table,
+             idx=_buckets(pts, neighbor_offsets(2, 0.5), 0.4, table.shape[0]),
+             replaces=f"{nm} neighborhood_probe {by}"),
+        *_selection("mesh", torch.from_numpy(pts), table, 6, f"{nm} query_feature {by}"),
+        dict(variant="query feats mesh", kernel="gather_rows", table=feats,
+             idx=feature_rows(torch.from_numpy(pts)), replaces=f"{nm} query_feature {by}"),
     ]
 
 
@@ -507,11 +551,11 @@ def host_cost(device=None, reps: int = 10000, parts: bool = False) -> dict:
 
 def run(device=None, shrink: int = 1, reps: int = 200, main_path: bool = False) -> List[dict]:
     """Run the six variants (and with ``main_path`` the hash-mirror,
-    mapper, selection, filter and BA shapes) on ``device`` (None: the card). Returns
+    mapper, selection, filter, BA and mesh-chunk shapes) on ``device`` (None: the card). Returns
     one row per variant; raises on any mismatch with the plain version."""
     dev = resolve_device(device)
     extra = (mirror_cases(shrink) + mapper_cases(shrink) + selection_cases(shrink)
-             + dynba_cases(shrink) if main_path else [])
+             + dynba_cases(shrink) + mesh_cases(shrink) if main_path else [])
     cases = make_cases(shrink) + extra
     return [run_case(case, dev, reps) for case in cases]
 
@@ -522,7 +566,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--shrink", type=int, default=1, help="divide every row count by this")
     ap.add_argument("--main-path", action="store_true",
                     help="add the main path's shapes: the hash mirrors, the mapper's slab, "
-                    "the kNN selection, the dynamic filter's and BA's")
+                    "the kNN selection, the dynamic filter's and BA's, a mesh chunk's")
     ap.add_argument("--host-cost", action="store_true",
                     help="also time each part of a launch's host path (card only)")
     args = ap.parse_args(argv)

@@ -873,3 +873,63 @@ def test_map_pallas_off_runs_no_fused_kernel_and_warns_nothing(driver):
         torch.cuda.synchronize()
         counts[flag] = ml.launches - before
     assert counts == {False: 0, True: 3}, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rotate_vecs", [False, True], ids=["plain_queries", "post_pgo"])
+def test_mesh_through_the_kernels_equals_the_plain_gathers(monkeypatch, rotate_vecs):
+    """A small map (3 frames of the tiny sequence) meshed on the card at
+    chunk_dim 48: each chunk queries through the hand gathers (2
+    gather_rows and 4 gather_lanes launches a chunk, 3 gather_rows with the
+    post-PGO quaternion rows), and the welded mesh, the slice and the
+    vertex colors equal those of the same calls with the gathers swapped
+    for their plain versions, bit for bit."""
+    from clid_slam_torch.mesher import Mesher
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops import gather as gt
+
+    system, seq = _tiny_system()
+    for i in range(3):
+        system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    system.block()
+    cfg, st = system.cfg, system.state
+    mesher = Mesher(knn_k=cfg.query_nn_k, nb_offs=system.nb_offs, resolution=cfg.voxel_size_m,
+                    max_valid_dist2=3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2,
+                    sdf_scale=cfg.sdf_scale, mesh_min_nn=cfg.mesh_min_nn,
+                    feature_dim=cfg.feature_dim, rotate_vecs=rotate_vecs)
+    # a color slab of feature_dim columns from a seed (the map has none)
+    gen = torch.Generator(device=st.mlp.w_out.device).manual_seed(0)
+    state = st.map_state._replace(color_feats=torch.randn(
+        (st.map_state.geo_feats.shape[0], cfg.feature_dim), generator=gen, device=gen.device))
+    n = int(state.count)
+    pts = state.positions[:n].cpu().numpy()
+
+    def mesh():
+        soup, chunks = mesher.triangle_soup(state, st.mlp, pts.min(0), pts.max(0), 0.1,
+                                            guide_points=pts)
+        v, t = mesher.recon_aabb_mesh(state, st.mlp, pts.min(0), pts.max(0), 0.1,
+                                      min_cluster_vertices=50, guide_points=pts)
+        s = mesher.sdf_slice(state, st.mlp, pts.mean(0), 6.0, 0.1, 0.1)
+        c = mesher.estimate_vertex_colors(state, st.color_mlp, v[:5000])
+        return chunks, (soup, v, t, *s, c)
+
+    gt.reset_launches()
+    chunks, kernel = mesh()
+    rows = 3 if rotate_vecs else 2
+    per_query = chunks * 2 + 2  # the soup's and the mesh's chunks, the slice's and colors' batches
+    assert gt.launches["gather_lanes"] >= 4 * per_query
+    assert gt.launches["gather_rows"] >= rows * per_query
+    assert len(kernel[1]) > 2000
+
+    def plain_lanes(src, sel):
+        return gt.gather_lanes_reference(src, sel)
+
+    with monkeypatch.context() as m:
+        m.setattr(gt, "gather_rows", gt.gather_rows_reference)
+        m.setattr(gt, "gather_lanes", plain_lanes)
+        m.setattr(nm, "gather_lanes", plain_lanes)
+        before = dict(gt.launches)
+        _, plain = mesh()
+        assert gt.launches == before
+    for a, b in zip(kernel, plain):
+        np.testing.assert_array_equal(a, b)

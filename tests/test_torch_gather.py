@@ -206,7 +206,8 @@ def test_probe_main_path_shapes_on_cpu():
     rows = pg.run("cpu", shrink=64, main_path=True)[6:]
     assert [r["variant"] for r in rows] == [
         c["variant"] for c in
-        cases + pg.mapper_cases(64) + pg.selection_cases(64) + pg.dynba_cases(64)]
+        cases + pg.mapper_cases(64) + pg.selection_cases(64) + pg.dynba_cases(64)
+        + pg.mesh_cases(64)]
     assert all(r["exact"] and "ms" not in r for r in rows)
 
 
@@ -396,3 +397,24 @@ def test_selection_through_gather_lanes_equals_the_parents_gathers(site, monkeyp
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b), (a, b)
+
+
+def test_probe_mesh_chunk_shapes_on_cpu():
+    """The probe's mesh-chunk variants, cut 64-fold: the chunk's grid points
+    probe the [2^22 / 64, 4] mirror at their 81 neighbour cells, the
+    selection picks K 6 of 81 lanes from the four sources, and the feature
+    rows are map rows or the sentinel row."""
+    cases = {c["variant"]: c for c in pg.mesh_cases(64)}
+    assert list(cases) == ["mirror mesh probe"] + [
+        f"select mesh {s}" for s in ("d2s", "h", "pvalid", "mir")] + ["query feats mesh"]
+    n_pts = 48**3 // 64
+    assert cases["mirror mesh probe"]["table"].shape == ((1 << 22) // 64, 4)
+    assert cases["mirror mesh probe"]["idx"].shape == (n_pts * 81,)
+    assert cases["select mesh mir"]["table"].shape == (n_pts, 81, 4)
+    assert all(cases[f"select mesh {s}"]["k"] == 6 for s in ("d2s", "h", "pvalid", "mir"))
+    feats = cases["query feats mesh"]
+    cap = feats["table"].shape[0] - 1
+    assert cap == (1 << 18) // 64 and feats["idx"].shape == (n_pts * 6,)
+    assert 0 < np.mean(feats["idx"] != cap)  # some grid points reach the map
+    rows = [pg.run_case(c, torch.device("cpu")) for c in cases.values()]
+    assert all(r["exact"] for r in rows)

@@ -69,6 +69,21 @@ def test_classic_driver_modules_are_the_ports_own():
         assert "clid_slam_tpu" not in f.read()
 
 
+def test_mesh_and_tool_modules_are_the_ports_own():
+    """Meshing (the mesher, marching tetrahedra) and the host tools are
+    files of the port, in the source scan above, and name no module of the
+    JAX package (their own copies of ``_weld_mesh``, the palette and the
+    tools)."""
+    rels = ("clid_slam_torch/mesher.py", "clid_slam_torch/ops/marching.py",
+            "clid_slam_torch/tools/inspect_map.py", "clid_slam_torch/tools/convert.py",
+            "clid_slam_torch/tools/live_viewer.py", "clid_slam_torch/tools/rosbag_converter.py")
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in rels:
+        assert rel in scanned, rel
+        with open(os.path.join(REPO, rel)) as f:
+            assert not re.search(r"\bclid_slam_tpu\.", f.read()), rel
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from clid_slam_torch import resolve_device
     from clid_slam_torch.pipeline.slam import SlamSystem, main, run_slam

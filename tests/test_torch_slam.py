@@ -9,8 +9,9 @@ port's default ``map_pallas``, its plain version here) and once with
 ``map_pallas`` off, where the port runs the JAX package's own loop, so
 the map's features agree to the mapper tests' 3 lr too. A checkpoint
 written by either package loads into the other, array for array. Then the
-CLI on a written dataset with ``--device cpu``, and the refusal of the
-mesh options (ROADMAP A14)."""
+CLI on a written dataset with ``--device cpu``, and the mesh options: each
+writes its artifacts on a tracked frame, and both packages' systems mesh
+one state into the same files (meshes within 1e-4 m Chamfer)."""
 
 import json
 import os
@@ -23,6 +24,8 @@ from clid_slam_torch.config import Config
 from clid_slam_torch.convert import classic_state_from_numpy
 from clid_slam_torch.pipeline import slam as tslam
 from clid_slam_torch.pipeline.synthetic import write_sequence_dataset
+from clid_slam_torch.tools import convert
+from clid_slam_torch.utils import io
 from clid_slam_tpu.pipeline.slam import SlamSystem as JaxSystem
 from clid_slam_tpu.pipeline.synthetic import generate_sequence
 import torch_jax_draws as jd
@@ -142,22 +145,88 @@ def test_run_slam_cli_writes_results(tmp_path):
     assert metrics["ate_rmse_m_noalign"] < 0.2 and metrics["neural_points"] > 500
 
 
-@pytest.mark.parametrize("option", ["save_mesh", "mesh_default_on", "sdf_default_on", "mesh_now"])
-def test_mesh_options_are_refused(tmp_path, option):
-    cfg = port_config(tiny_config())
-    cfg.output_root = str(tmp_path)
-    if option != "mesh_now":
-        setattr(cfg, option, True)
-        with pytest.raises(NotImplementedError, match="A14"):
-            tslam.SlamSystem(cfg, total_frames=4, device="cpu")
-        return
-    system = tslam.SlamSystem(cfg, total_frames=4, device="cpu")
-    os.makedirs(system.run_path, exist_ok=True)
-    with open(os.path.join(system.run_path, "control.json"), "w") as f:
-        json.dump({"mesh_now": True}, f)
-    with pytest.raises(NotImplementedError, match="A14"):
-        system.process_frame(0, np.zeros((100, 3), np.float32))
+# the mesh options, each with a cadence that fires at frame N_JAX; meshes
+# at 0.5 m (one chunk) and slices at 0.3 m keep the CPU's work small
+MESH_OPTIONS = {
+    "save_mesh": dict(save_mesh=True),
+    "mesh_default_on": dict(mesh_default_on=True, mesh_freq_frame=N_JAX + 1),
+    "sdf_default_on": dict(sdf_default_on=True, sdfslice_freq_frame=N_JAX + 1,
+                           vis_sdf_slice_v=True),
+    "mesh_now": {},  # asked for through the control channel
+}
 
+
+def _mesh_config(make, root, **options):
+    cfg = make(tiny_config(**options))
+    cfg.mc_res_m, cfg.vis_sdf_res_m, cfg.output_root = 0.5, 0.3, str(root)
+    return cfg
+
+
+@pytest.mark.parametrize("option", list(MESH_OPTIONS))
+def test_mesh_options_write_their_artifacts(jax_run, seq, tmp_path, option):
+    """Each mesh option, on one tracked frame from the JAX state, writes its
+    artifacts: the local mesh (mesh_default_on, and mesh_now from the
+    control channel), the horizontal and vertical SDF slices, or the final
+    mesh.ply with its vertex count in metrics.json; FrameStats times the
+    in-loop ones under "mesh"."""
+    _, _, draws, _, ckpt = jax_run
+    port = tslam.SlamSystem(_mesh_config(port_config, tmp_path, **MESH_OPTIONS[option]),
+                            total_frames=16, device="cpu")
+    port.load_checkpoint(ckpt)
+    run = port.run_path
+    if option == "mesh_now":
+        os.makedirs(run, exist_ok=True)
+        with open(os.path.join(run, "control.json"), "w") as f:
+            json.dump({"mesh_now": True}, f)
+    st = port.process_frame(N_JAX, seq.scans[N_JAX], seq.imu_windows[N_JAX], draws=draws)
+    want = {"save_mesh": ["mesh.ply"], "mesh_default_on": [f"mesh/mesh_{N_JAX}.ply"],
+            "mesh_now": [f"mesh/mesh_{N_JAX}.ply"],
+            "sdf_default_on": [f"sdf_slice/slice_{N_JAX}.ply", f"sdf_slice/slice_v_{N_JAX}.ply"]}
+    if option == "save_mesh":
+        assert st.timings["mesh"] == 0.0
+        result = port.finalize(run)
+        with open(os.path.join(run, "metrics.json")) as f:
+            assert json.load(f)["mesh_vertices"] == result["mesh_vertices"] > 1000
+    else:
+        assert st.timings["mesh"] > 0 and port.dataset.time_table[-1][4] == st.timings["mesh"]
+    for rel in want[option]:
+        ply = io.read_ply(os.path.join(run, rel))
+        assert len(ply["x"]) > 100, rel
+    others = {"mesh", "sdf_slice", "mesh.ply"} - {w.split("/")[0] for w in want[option]}
+    assert not others & set(os.listdir(run)), os.listdir(run)
+
+
+def test_meshing_matches_jax_on_one_state(jax_run, seq, tmp_path):
+    """Both packages' systems with every mesh option, from the JAX state
+    after N_JAX frames: the in-loop local mesh and slices and the final
+    mesh write the same files; the meshes within 1 % in vertex count and
+    1e-4 m in symmetric Chamfer distance; the slices' points the same grid
+    (counts within 1 %: a grid point on a voxel face may fall into the
+    other cell, see tests/test_torch_mesher.py)."""
+    from scipy.spatial import cKDTree
+
+    _, _, _, _, ckpt = jax_run
+    opts = dict(save_mesh=True, mesh_default_on=True, sdf_default_on=True, vis_sdf_slice_v=True)
+    systems = {}
+    for name, make, cls, kw in (("jax", lambda c: c, JaxSystem, {}),
+                                ("port", port_config, tslam.SlamSystem, dict(device="cpu"))):
+        system = cls(_mesh_config(make, tmp_path / name, **opts), total_frames=16, **kw)
+        system.load_checkpoint(ckpt)
+        system._write_local_mesh(N_JAX)
+        system._write_sdf_slice(N_JAX)
+        system.finalize(system.run_path)
+        systems[name] = system.run_path
+    files = {k: sorted(os.path.relpath(os.path.join(d, f), r) for d, _, fs in os.walk(r)
+                       for f in fs if f.endswith(".ply"))
+             for k, r in systems.items()}
+    assert files["port"] == files["jax"] and len(files["jax"]) == 4, files
+    for rel in files["jax"]:
+        jv, pv = (convert._read_mesh_ply(os.path.join(systems[k], rel))[0] if "mesh" in rel
+                  else np.stack([io.read_ply(os.path.join(systems[k], rel))[c] for c in "xyz"], 1)
+                  for k in ("jax", "port"))
+        assert abs(len(pv) - len(jv)) <= 0.01 * len(jv) and len(jv) > 100, (rel, len(pv), len(jv))
+        chamfer = 0.5 * (cKDTree(jv).query(pv)[0].mean() + cKDTree(pv).query(jv)[0].mean())
+        assert chamfer < 1e-4, (rel, chamfer)
 
 
 @pytest.mark.parametrize("driver", ["classic", "streaming"])
