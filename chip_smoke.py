@@ -45,6 +45,25 @@ Phases, each printing one JSON line:
           frames), nothing cut, with the point count around each prune.
           On this trajectory no point goes inactive, so these prunes are an
           identity compaction and a rehash;
+  sharded          the sharded runtime (clid_slam_torch/parallel) at world
+          size 1 on NCCL (a one-rank process group through a FileStore),
+          at the large configuration's widths: a shard of 2^19 rows and a
+          2^23 hash table filled by insert_fn with that run's map points
+          beside a single map filled by insert_points (equal bit for bit),
+          then with the run's features; query_fn at 16384 pool rows against
+          query_feature on the single map (counts and selections exact,
+          features within 1e-5) and the sharded certainty against
+          query_certainty_max (exact); mapping_fn in its three bodies, 10
+          iterations of bs 16384 (losses falling, the batch-sharded and
+          replicated bodies within test_spatial.py's tolerances, the cached
+          body twice and under the plain gathers bit for bit);
+          make_dp_mapping_fn twice, bit for bit; the sharded tracker on the
+          last scan against make_cached_update_fn (pose within 1e-4): ms
+          per call by CUDA events, the gathers' launches per call,
+          collective_bytes_per_query, the backend and world size. More than
+          one rank is checked only on gloo on the CPU
+          (tests/test_torch_{collectives,data_parallel,spatial,
+          spatial_mapping}.py);
   prune_check      on the map that run ends with: the configured prune (the map
           must probe as before) and a global prune at the median certainty
           (which drops about half the rows); in both, the survivors are the
@@ -1071,6 +1090,291 @@ def gradient_check(system, seq, n_frames, device):
     return res
 
 
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A process group of one rank (NCCL on the card, gloo on the CPU)
+    through a FileStore in a temporary directory."""
+    import torch
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+                                world_size=1)
+        try:
+            yield dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_phase(system, seq, n_frames, device):
+    """The sharded runtime (``clid_slam_torch/parallel``) at world size 1 on
+    NCCL, at the large configuration's widths: a shard of 2 x map_capacity
+    rows and a 2 x map_hash_size table (``slam_sharded.py:79-80`` at one
+    shard), filled by ``insert_fn`` with the points of the map that
+    ``system`` (the finished large run) ends with, 32768 a call, beside a
+    single map filled by ``insert_points`` with the same calls; the shard
+    then takes that run's features and certainty row by row. Checked:
+    - the shard equals the single map bit for bit after the inserts;
+    - ``query_fn`` at 16384 pool rows: ``nn_count`` and each row's selected
+      map rows equal ``query_feature``'s on the single map, features within
+      1e-5; the sharded certainty equals ``query_certainty_max`` bit for bit;
+    - ``mapping_fn`` in each body (cached, batch-sharded, replicated), 10
+      iterations of bs 16384 from the shard's untrained features (the run's
+      MLP and pool, one generator seed): losses finite, the last step's SDF
+      loss under the first step's; the first step's SDF loss, on one batch in
+      all three bodies, within rtol 2e-3; the batch-sharded and replicated
+      bodies' features, MLP and losses within rtol 2e-3 / atol 2e-4
+      (test_spatial.py:222), certainty within 2e-3; the cached body twice
+      and under ``plain_gathers()`` bit for bit;
+    - ``make_dp_mapping_fn`` twice (10 iterations) bit for bit;
+    - ``make_sharded_tracker_fn`` on the last scan (its points within
+      ``track_max_range``, 8192 of them) from the run's last pose moved by 5
+      cm: pose within 1e-4 of the single-device ``make_cached_update_fn`` on
+      the single map, iteration counts within 1.
+    ms per call (CUDA events) and the gathers' launches per call; the
+    launch counts are set to 0 before the driven calls and read after."""
+    import torch
+
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.odometry import iekf
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.ops.voxel import grid_coords, voxel_hash
+    from clid_slam_torch.parallel import data_parallel as dp
+    from clid_slam_torch.parallel import spatial as sp
+    from clid_slam_torch.pipeline.streaming import mapping_kwargs
+
+    cfg, st = system.cfg, system.state
+    big, pool, mlp = st.map_state, st.pool, st.mlp
+    cur, travel, window = n_frames - 1, st.travel_dist, cfg.diff_travel_dist_local
+    res_m = cfg.voxel_size_m
+    offs = torch.as_tensor(system.nb_offs, device=device)
+    mk = mapping_kwargs(cfg, system.nb_offs, system.encode_vecs)
+    kw = {k: mk[k] for k in ("feature_dim", "knn_k", "nb_offs", "resolution", "max_valid_dist2",
+                             "sdf_scale", "sigma", "bs", "bs_new", "gradient_decimation",
+                             "num_grad_eps", "weight_e", "loss_weight_on", "lr", "adam_eps",
+                             "mlp_leaky", "mlp_bf16", "encode_vecs")}
+    mvd2 = kw["max_valid_dist2"]
+    cap, hsize = 2 * cfg.map_capacity, 2 * cfg.map_hash_size
+    wrong, calls = [], {}
+
+    def timed(name, fn):
+        """fn() with CUDA events around it (the host clock on the CPU, where
+        the phase is rehearsed); its ms and gather launches."""
+        before = dict(gt.launches)
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            stop.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(stop)
+        calls.setdefault(name, []).append({
+            "ms": ms, **{k: gt.launches[k] - before[k] for k in ("gather_rows", "gather_lanes")}})
+        return out
+
+    def equal_state(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a.tensors(), b.tensors()))
+
+    with one_rank_group(device) as backend:
+        mesh = sp.make_spatial_mesh()
+        insert_fn, query_fn, _ = sp.make_spatial_fns(mesh, **kw)
+        bodies = {b: sp.make_spatial_fns(mesh, batch_shard=b, **kw)[2]
+                  for b in ("cached", True, False)}
+        certainty_fn = sp.make_sharded_certainty_fn(mesh, resolution=res_m,
+                                                    max_valid_dist2=3.0 * (2.0 * res_m) ** 2)
+        dp_map = dp.make_dp_mapping_fn(mesh, **kw)
+        n_cand = cfg.track_n_cand or max(16, cfg.query_nn_k * 2)
+        body = iekf.make_cached_update_fn(
+            knn_k=cfg.query_nn_k, n_cand=n_cand, nb_offs=system.nb_offs, resolution=res_m,
+            max_valid_dist2=mvd2, sdf_scale=cfg.sdf_scale, min_grad_norm=cfg.reg_min_grad_norm,
+            max_grad_norm=cfg.reg_max_grad_norm, min_nn_count=cfg.track_mask_query_nn_k,
+            max_iteration=cfg.reg_iter_n, term_thre_deg=cfg.reg_term_thre_deg,
+            term_thre_m=cfg.reg_term_thre_m, mlp_leaky=cfg.mlp_leaky_relu, mlp_bf16=cfg.mlp_bf16,
+            encode_vecs=system.encode_vecs, weighted_first=cfg.weighted_first,
+            layer_norm=cfg.layer_norm_on, stagnation_iter=cfg.stagnation_iter,
+            info_scale=cfg.tracker_info_scale,
+        )
+        tracker = sp.make_sharded_tracker_fn(mesh, body, nb_offs=system.nb_offs,
+                                             resolution=res_m, max_valid_dist2=mvd2,
+                                             layer_norm=cfg.layer_norm_on)
+        ml.launches = 0  # count only this path's launches
+        gt.reset_launches()
+
+        # fill: the run's map points, 32768 a call (the insert's budget)
+        count = int(big.count)
+        shard = sp.init_sharded_map(mesh, cap, hsize, cfg.feature_dim, device=device)
+        single = nm.init_map(cap, hsize, cfg.feature_dim, device=device)
+        ratios = []
+        for i in range(0, count, 32768):
+            pts = big.positions[i : min(i + 32768, count)]
+            mask = torch.ones(len(pts), dtype=torch.bool, device=device)
+            shard, ratio = timed("insert_fn", lambda: insert_fn(shard, pts, mask, travel, cur,
+                                                                 window))
+            single, _ = nm.insert_points(single, pts, mask, res_m, travel, cur, window)
+            ratios.append(float(ratio))
+        if not equal_state(shard, single):
+            wrong.append("the shard differs from the single map after the same inserts")
+        n_shard = sp.total_count(shard, mesh)
+        fresh = shard
+        # the run's features and certainty, by each row's position in its map
+        rows = torch.arange(n_shard, device=device)
+        pos = shard.positions[:n_shard]
+        src = big.hash_table[voxel_hash(grid_coords(pos, res_m), big.hash_table.shape[0])].long()
+        src_ok = (src >= 0) & torch.all(big.positions[src.clamp(min=0)] == pos, dim=-1)
+        feats, cert = shard.geo_feats.clone(), shard.certainty.clone()
+        feats[rows[src_ok]] = big.geo_feats[src[src_ok]]
+        cert[rows[src_ok]] = big.certainty[src[src_ok]]
+        shard = shard._replace(geo_feats=feats, certainty=cert)
+        single = single._replace(geo_feats=feats, certainty=cert)
+
+        # query and certainty at 16384 pool rows
+        gen = torch.Generator(device=device).manual_seed(5)
+        qpts = pool.data[torch.randint(0, int(pool.size), (16384,), generator=gen,
+                                       device=device), :3].contiguous()
+        q = timed("query_fn", lambda: query_fn(shard, qpts, travel, cur, window))
+        r1 = nm.query_feature(single, qpts, offs, res_m, mvd2, cfg.query_nn_k, travel, cur,
+                              window, False, encode_vecs=system.encode_vecs)
+
+        def picked(idx):
+            return torch.sort(torch.where(idx >= 0, idx, torch.full_like(idx, -1)), dim=1).values
+
+        feat_err = float((q.feature - r1.feature).abs().max())
+        if not torch.equal(q.nn_count, r1.nn_count):
+            wrong.append("query nn_count")
+        if not torch.equal(picked(q.knn_idx), picked(r1.knn_idx)):
+            wrong.append("query selections")
+        if not feat_err <= 1e-5:
+            wrong.append(f"query features: max err {feat_err}")
+        c_sh = timed("certainty_fn", lambda: certainty_fn(shard, qpts))
+        if not torch.equal(c_sh, nm.query_certainty_max(single, qpts, res_m,
+                                                        3.0 * (2.0 * res_m) ** 2)):
+            wrong.append("certainty")
+
+        # mapping: the three bodies from the shard's untrained features
+        def mapped(b, iters, name=None):
+            fn = lambda: bodies[b](fresh, mlp, pool, travel, cur, window, iters, 1.0,  # noqa: E731
+                                   generator=torch.Generator(device=device).manual_seed(11))
+            return timed(name, fn) if name else fn()
+
+        names = {"cached": "cached", True: "sharded_batch", False: "replicated"}
+        first = {b: mapped(b, 1) for b in bodies}
+        runs = {b: mapped(b, N_ITERS, f"mapping_fn {names[b]}") for b in bodies}
+        again = mapped("cached", N_ITERS, "mapping_fn cached")
+        dp_runs = [timed("dp_mapping", lambda: dp_map(fresh, mlp, pool, travel, cur, window,
+                                                      N_ITERS, 1.0,
+                                                      generator=torch.Generator(
+                                                          device=device).manual_seed(11)))
+                   for _ in range(2)]
+
+        # tracking: the last scan from the run's last pose moved by 5 cm
+        scan = torch.as_tensor(np.asarray(seq.scans[cur][:, :3], np.float32), device=device)
+        if cfg.track_max_range > 0:
+            scan = scan[torch.linalg.norm(scan, dim=-1) <= cfg.track_max_range]
+        pick = torch.randperm(len(scan), generator=gen.manual_seed(6), device=device)
+        pts_imu = scan[pick[: cfg.max_source_points]].contiguous()
+        tmask = torch.ones(len(pts_imu), dtype=torch.bool, device=device)
+        pos0 = st.pos + torch.tensor([0.04, -0.02, 0.02], device=device)
+        targs = (pts_imu, tmask, st.rot, pos0, st.rest, st.P, travel, cur, window)
+        tr = timed("tracker", lambda: tracker(shard, mlp, *targs))
+        # warm calls beside the first ones, then the comparisons' runs
+        timed("query_fn", lambda: query_fn(shard, qpts, travel, cur, window))
+        timed("certainty_fn", lambda: certainty_fn(shard, qpts))
+        timed("tracker", lambda: tracker(shard, mlp, *targs))
+        launches = {"map_loop": ml.launches, **{k: gt.launches[k]
+                                                for k in ("gather_rows", "gather_lanes")}}
+        t1 = body(single, mlp, *targs)
+        before = gt.launches["gather_rows"] + gt.launches["gather_lanes"]
+        with plain_gathers():
+            plain = mapped("cached", N_ITERS)
+        plain_launches = gt.launches["gather_rows"] + gt.launches["gather_lanes"] - before
+
+    def same(a, b):
+        s_a, m_a, l_a = a
+        s_b, m_b, l_b = b
+        return (equal_state(s_a, s_b) and torch.equal(l_a, l_b)
+                and all(torch.equal(x, y) for x, y in zip(m_a.tensors(), m_b.tensors())))
+
+    def max_err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    losses = {names[b]: runs[b][2].tolist() for b in bodies}
+    first_sdf = {names[b]: float(first[b][2][0]) for b in bodies}
+    for b in bodies:
+        l1, l10 = first[b][2], runs[b][2]
+        if not (bool(torch.isfinite(l10).all()) and float(l10[0]) < float(l1[0])):
+            wrong.append(f"{names[b]}: SDF loss {float(l1[0])} after 1 step, "
+                         f"{l10.tolist()} after {N_ITERS}")
+    f_ref = first_sdf["sharded_batch"]
+    if any(abs(v - f_ref) > 2e-3 * abs(f_ref) for v in first_sdf.values()):
+        wrong.append(f"first-step SDF losses differ: {first_sdf}")
+    (s_b, m_b, l_b), (s_r, m_r, l_r) = runs[True], runs[False]
+    body_err = {
+        "features": float((s_b.geo_feats - s_r.geo_feats).abs().max()),
+        "mlp": max_err(m_b.tensors(), m_r.tensors()),
+        "losses": float((l_b - l_r).abs().max()),
+        "certainty": float((s_b.certainty - s_r.certainty).abs().max()),
+    }
+    close = lambda x, y: bool(torch.all((x - y).abs() <= 2e-4 + 2e-3 * y.abs()))  # noqa: E731
+    if not (close(s_b.geo_feats, s_r.geo_feats) and close(l_b, l_r)
+            and all(close(x, y) for x, y in zip(m_b.tensors(), m_r.tensors()))
+            and bool(torch.all((s_b.certainty - s_r.certainty).abs()
+                               <= 2e-3 + 2e-3 * s_r.certainty.abs()))):
+        wrong.append(f"batch-sharded vs replicated body: {body_err}")
+    if not same(runs["cached"], again):
+        wrong.append("the cached body differs from call to call")
+    if not same(runs["cached"], plain):
+        wrong.append("the cached body differs under the plain gathers")
+    if plain_launches != 0:
+        wrong.append(f"{plain_launches} gather launches under the plain gathers")
+    if not same(dp_runs[0], dp_runs[1]):
+        wrong.append("make_dp_mapping_fn differs from call to call")
+    if not bool(torch.isfinite(dp_runs[0][2]).all()):
+        wrong.append(f"dp losses {dp_runs[0][2].tolist()}")
+    pose_err = max(float((tr[1] - t1[1]).abs().max()), float((tr[0] - t1[0]).abs().max()))
+    if not (pose_err <= 1e-4 and bool(tr[4]) and abs(int(tr[5]) - int(t1[5])) <= 1):
+        wrong.append(f"tracker: pose err {pose_err}, ok {bool(tr[4])}, iterations "
+                     f"{int(tr[5])} vs {int(t1[5])}")
+    if launches["map_loop"] != 0 or min(launches["gather_rows"], launches["gather_lanes"]) == 0:
+        wrong.append(f"launches {launches}")
+    gt_pose = seq.poses[cur]
+    res = {
+        "phase": "sharded", "backend": backend, "world_size": mesh.size,
+        "shard_capacity": cap, "shard_hash_size": hsize, "map_points_in": count,
+        "shard_points": n_shard, "rows_given_features": int(src_ok.sum()),
+        "insert_new_ratios": ratios, "bs": kw["bs"], "iters": N_ITERS, "query_points": 16384,
+        "collective_bytes_per_query": dict(zip(
+            ("full_candidate", "partial_knn"),
+            sp.collective_bytes_per_query(len(system.nb_offs), cfg.query_nn_k, cfg.feature_dim))),
+        "query_feature_max_abs_err": feat_err, "first_step_sdf_loss": first_sdf,
+        "losses": losses, "dp_losses": dp_runs[0][2].tolist(),
+        "batch_sharded_vs_replicated_max_abs_err": body_err,
+        "tracker": {"n_points": len(pts_imu), "pose_max_abs_err_vs_single": pose_err,
+                    "iters": int(tr[5]), "single_iters": int(t1[5]), "ok": bool(tr[4]),
+                    "position_error_to_ground_truth_m": float(np.linalg.norm(
+                        tr[1].cpu().numpy() - gt_pose[:3, 3]))},
+        "calls": calls, "map_loop_launches": launches["map_loop"],
+        "gather_rows_launches": launches["gather_rows"],
+        "gather_lanes_launches": launches["gather_lanes"],
+        "tolerance": "shard = single map, nn_count, selections, certainty, repeats and plain "
+        "gathers: exact; query features 1e-5; first-step SDF losses rtol 2e-3; batch-sharded "
+        "vs replicated rtol 2e-3 / atol 2e-4 (certainty 2e-3); tracker pose 1e-4, iterations 1",
+        "wrong": wrong,
+    }
+    emit(res)
+    if wrong:
+        raise AssertionError(f"sharded: {wrong}")
+    return res
+
+
 def color_sem_map(device, n_frames=10):
     """The color and semantic heads at bench widths on labelled data: the
     small sequence's first scan, each point with an intensity from its
@@ -1516,6 +1820,7 @@ def main():
     small, small_system = stream_phase("stream", False, 25, 10, device)
     large_seq = bench_cases.make_sequence(True, 200)
     large, large_system = stream_phase("stream_large", True, 200, 10, device, seq=large_seq)
+    sharded = sharded_phase(large_system, large_seq, 200, device)
     prune_check(large_system, 200)
     mesh_large(large_system, large_seq, 200)
     del large_system, large_seq
@@ -1556,8 +1861,8 @@ def main():
 
     def by_path(key):
         return {r["phase"]: r[key]
-                for r in (small, large, fallback, dynba, resumed, requery, *options, labelled,
-                          classic, pgo, files) if key in r}
+                for r in (small, large, sharded, fallback, dynba, resumed, requery, *options,
+                          labelled, classic, pgo, files) if key in r}
 
     main_case = cases[0]  # the bench config: 1 hidden layer, no layer norm
     # launches: the count on the large run, this script's full-width path;

@@ -8,7 +8,10 @@
   builds the port's ``StreamState``, maps and pool included;
   ``stream_state_to_numpy`` is its inverse;
 - ``classic_state_from_numpy`` carries a JAX ``SlamSystem``'s state (maps,
-  pool, MLPs, the host filter, the dataset's poses) into the port's.
+  pool, MLPs, the host filter, the dataset's poses) into the port's;
+- ``sharded_map_from_numpy`` takes one rank's shard of a JAX sharded map
+  (leaves with a leading [S] shard axis), ``sharded_map_to_numpy`` gives a
+  rank's shard back as leaves without that axis.
 
 Nothing here imports JAX: callers hand over numpy arrays.
 """
@@ -76,6 +79,18 @@ def neural_map_from_numpy(leaves: Sequence, device=None) -> NeuralMapState:
         ts_update=i32(m[6]), count=i32(m[7]), hash_table=i32(m[8]),
         hash_mirror=f32(m[9]),
     )
+
+
+def sharded_map_from_numpy(leaves: Sequence, rank: int, device=None) -> NeuralMapState:
+    """Shard ``rank`` of the 10 stacked ``[S, ...]`` leaves of JAX's
+    ``parallel/spatial.py:init_sharded_map`` state, as this rank's map."""
+    return neural_map_from_numpy([np.asarray(a)[rank] for a in leaves], device)
+
+
+def sharded_map_to_numpy(state: NeuralMapState) -> list:
+    """This rank's shard as its 10 leaves in field order (stack the ranks'
+    along a new leading axis for JAX's layout)."""
+    return [x.detach().cpu().numpy() for x in state.tensors()]
 
 
 def local_map_from_numpy(leaves: Sequence, device=None) -> LocalMapState:

@@ -534,6 +534,10 @@ def make_cached_update_fn(
         cands = build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts, window)
         return dense_update(cands, mlp, points_imu, mask, rot0, pos0, rest0, P)
 
+    # the sharded tracker builds the candidates collectively and runs the
+    # same dense iterations (parallel/spatial.py:make_sharded_tracker_fn)
+    body.dense_update = dense_update
+    body.n_cand = n_cand
     return body
 
 

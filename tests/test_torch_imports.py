@@ -16,7 +16,9 @@ _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|clid_slam_tpu)\b", re.M)
 
 def _port_sources():
     root = os.path.join(REPO, "clid_slam_torch")
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py and the modules the sharded tests' spawned ranks import
+    out = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", f) for f in ("torch_dist.py", "torch_sharded_ranks.py")]
     for d, dirs, files in os.walk(root):
         dirs[:] = [x for x in dirs if x not in ("build", "__pycache__")]  # build output
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -31,13 +33,16 @@ def test_import_leaves_jax_out_of_sys_modules():
         "mods = [m.name for m in pkgutil.walk_packages("
         "clid_slam_torch.__path__, 'clid_slam_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "assert {'clid_slam_torch.parallel.collectives', 'clid_slam_torch.parallel.spatial', "
+        "'clid_slam_torch.parallel.data_parallel'} <= set(mods), mods\n"
         "import chip_smoke\n"
+        "import torch_dist, torch_sharded_ranks  # the spawned ranks' modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'clid_slam_tpu')]\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=300,
@@ -84,8 +89,27 @@ def test_mesh_and_tool_modules_are_the_ports_own():
             assert not re.search(r"\bclid_slam_tpu\.", f.read()), rel
 
 
+def test_sharded_runtime_modules_are_the_ports_own():
+    """The sharded runtime (collectives, the data-parallel mapper, the
+    sharded map) is files of the port, in the source scan above, naming no
+    module of the JAX package."""
+    rels = ("clid_slam_torch/parallel/__init__.py", "clid_slam_torch/parallel/collectives.py",
+            "clid_slam_torch/parallel/data_parallel.py", "clid_slam_torch/parallel/spatial.py")
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in rels:
+        assert rel in scanned, rel
+        with open(os.path.join(REPO, rel)) as f:
+            src = f.read()
+        assert not re.search(r"\bclid_slam_tpu\.", src), rel
+        # float sums across ranks keep rank order: the one all-reduce is pmax's
+        assert "torch.distributed.nn" not in src, rel
+        calls = re.findall(r"dist\.all_reduce\(([^)]*)\)", src)
+        assert all("ReduceOp.MAX" in c for c in calls), (rel, calls)
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from clid_slam_torch import resolve_device
+    from clid_slam_torch.parallel.spatial import init_sharded_map
     from clid_slam_torch.pipeline.slam import SlamSystem, main, run_slam
     from clid_slam_torch.pipeline.streaming import StreamingSlam
     from clid_slam_torch.pipeline.synthetic import generate_sequence, write_sequence_dataset
@@ -104,6 +128,7 @@ def test_entry_points_default_to_cuda(tmp_path):
             lambda: SlamSystem(port_config(tiny_config()), total_frames=4),
             lambda: run_slam(cfg_path),
             lambda: main([cfg_path]),
+            lambda: init_sharded_map(None, 16, 64, 8),
         ):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 make()
