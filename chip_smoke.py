@@ -60,8 +60,11 @@ Phases, each printing one JSON line:
           make_dp_mapping_fn twice, bit for bit; the sharded tracker on the
           last scan against make_cached_update_fn (pose within 1e-4): ms
           per call by CUDA events, the gathers' launches per call,
-          collective_bytes_per_query, the backend and world size. More than
-          one rank is checked only on gloo on the CPU
+          collective_bytes_per_query, the backend and world size, and the
+          rows the inserts did not add split by cause (insert_shortfall:
+          rows sharing a voxel or voxels sharing a bucket within a call,
+          voxels an earlier call put in; the causes must sum to the
+          shortfall). More than one rank is checked only on gloo on the CPU
           (tests/test_torch_{collectives,data_parallel,spatial,
           spatial_mapping}.py);
   prune_check      on the map that run ends with: the configured prune (the map
@@ -75,6 +78,25 @@ Phases, each printing one JSON line:
           a chunk, the device loop and the weld timed apart, vertex
           distances to the world's surfaces, both triangle soups equal
           under the plain gathers;
+  stream_sharded   StreamingShardedSlam (pipeline/streaming_sharded.py) at
+          world size 1 on NCCL over the small sequence (25 frames, 10
+          warm-up) at the small configuration's widths (a 2^19-row shard,
+          a 2^23 table): frame 0's ms, the steady ms a frame (CUDA events),
+          ATE under 0.35 m (the JAX package's sharded test's gate), not
+          failed, and the gathers' launches equal to the count worked out
+          from the code (expected_sharded_launches; map_loop 0: the
+          sharded mapping bodies are the autograd loop);
+  sharded_checkpoint_resume  the same run saved after frame 14 (one npz
+          in the JAX package's sharded layout), loaded into a fresh system
+          and run on: frames 15-24, losses, iteration counts and every
+          state tensor equal stream_sharded's bit for bit;
+  classic_sharded  run_sharded_slam (parallel/distributed.py) with no
+          process group and nothing in the environment (it brings up a
+          one-process NCCL group) over the same 25 frames: ATE under
+          0.25 m and ARE under 4 deg (the JAX sharded test's gates), poses
+          equal to a direct ShardedSlamSystem loop's bit for bit, the
+          launches equal to the count worked out from the code, ms of the
+          call and the direct loop's frame 0 and steady ms a frame;
   stream_fallback  the small sequence with leaky ReLU, which the fused
           kernel does not take: 12 frames on the mapper's autograd loop;
   stream_dynba     the small configuration with the dynamic filter on every
@@ -1213,10 +1235,12 @@ def sharded_phase(system, seq, n_frames, device):
         count = int(big.count)
         shard = sp.init_sharded_map(mesh, cap, hsize, cfg.feature_dim, device=device)
         single = nm.init_map(cap, hsize, cfg.feature_dim, device=device)
-        ratios = []
+        ratios, shortfall = [], {}
         for i in range(0, count, 32768):
             pts = big.positions[i : min(i + 32768, count)]
             mask = torch.ones(len(pts), dtype=torch.bool, device=device)
+            for k, v in insert_shortfall(shard, pts, res_m).items():
+                shortfall[k] = shortfall.get(k, 0) + v
             shard, ratio = timed("insert_fn", lambda: insert_fn(shard, pts, mask, travel, cur,
                                                                  window))
             single, _ = nm.insert_points(single, pts, mask, res_m, travel, cur, window)
@@ -1224,6 +1248,7 @@ def sharded_phase(system, seq, n_frames, device):
         if not equal_state(shard, single):
             wrong.append("the shard differs from the single map after the same inserts")
         n_shard = sp.total_count(shard, mesh)
+        shortfall["rows"] = count - n_shard
         fresh = shard
         # the run's features and certainty, by each row's position in its map
         rows = torch.arange(n_shard, device=device)
@@ -1345,11 +1370,14 @@ def sharded_phase(system, seq, n_frames, device):
                      f"{int(tr[5])} vs {int(t1[5])}")
     if launches["map_loop"] != 0 or min(launches["gather_rows"], launches["gather_lanes"]) == 0:
         wrong.append(f"launches {launches}")
+    if shortfall["rows"] != sum(v for k, v in shortfall.items() if k != "rows"):
+        wrong.append(f"the insert shortfall is not explained: {shortfall}")
     gt_pose = seq.poses[cur]
     res = {
         "phase": "sharded", "backend": backend, "world_size": mesh.size,
         "shard_capacity": cap, "shard_hash_size": hsize, "map_points_in": count,
         "shard_points": n_shard, "rows_given_features": int(src_ok.sum()),
+        "insert_shortfall": shortfall,
         "insert_new_ratios": ratios, "bs": kw["bs"], "iters": N_ITERS, "query_points": 16384,
         "collective_bytes_per_query": dict(zip(
             ("full_candidate", "partial_knn"),
@@ -1372,6 +1400,277 @@ def sharded_phase(system, seq, n_frames, device):
     emit(res)
     if wrong:
         raise AssertionError(f"sharded: {wrong}")
+    return res
+
+
+def insert_shortfall(state, points, resolution):
+    """Why one insert of ``points`` (all valid, one call) into ``state``
+    adds fewer rows than it is given: rows that share a voxel with another
+    row of the call and voxels that share a bucket of the table with
+    another voxel of the call (the insert's down-sampling keeps one
+    candidate a voxel and one a bucket), then the kept candidates whose
+    bucket already holds a point of their own voxel (``in_map``) or of a
+    voxel within sqrt(3) voxels (``in_map_near``): the probe refuses both
+    (tests/test_torch_insert_shortfall.py)."""
+    import torch
+
+    from clid_slam_torch.models import neural_map as nm
+    from clid_slam_torch.ops.voxel import grid_coords, voxel_down_sample_mask, voxel_hash
+
+    hsize = state.hash_table.shape[0]
+    g = grid_coords(points, resolution)
+    vox = torch.unique(g, dim=0)
+    keep = voxel_down_sample_mask(points, torch.ones(len(points), dtype=torch.bool,
+                                                     device=points.device), resolution, hsize)
+    mir = state.hash_mirror[voxel_hash(g[keep], hsize)]
+    near = (mir[:, 0] < nm._EMPTY_POS * 0.5) & (
+        torch.sum((mir[:, :3] - points[keep]) ** 2, dim=-1) <= 3.0 * resolution * resolution)
+    near = near & (state.count > 0)  # the first insert into a map takes every candidate
+    same = near & torch.all(grid_coords(mir[:, :3], resolution) == g[keep], dim=-1)
+    return {"same_voxel": len(points) - len(vox),
+            "shared_bucket": len(vox) - len(torch.unique(voxel_hash(vox, hsize))),
+            "in_map": int(same.sum()), "in_map_near": int((near & ~same).sum())}
+
+
+def expected_sharded_launches(cfg, tracked, map_iters):
+    """The gather launches of a sharded driver's run, worked out from
+    ``clid_slam_torch/parallel/spatial.py``: a tracked frame's candidate
+    build (the probe, the winners' positions and features: 3 rows; the
+    local selection's 3 lanes and the global top-k's 2); every mapped
+    frame the local map's label probe (1 row; none with use_pin_mapper),
+    the insert's mirror probe (1 row) and, with novelty samples, the
+    certainty's (1 row); the cached mapping body on frames after 0 (its
+    probe and positions, 2 rows, then the feature payload a step; 5 lanes),
+    frame 0's uncached body two combined queries a step (6 rows, 10 lanes).
+    ``tracked``: the frames the tracker ran; ``map_iters``: (frame, steps)
+    of each mapped frame. Returns (rows, lanes)."""
+    prep = (0 if cfg.use_pin_mapper else 1) + 1 + (1 if cfg.bs_new_sample > 0 else 0)
+    rows, lanes = 3 * len(tracked), 5 * len(tracked)
+    for f, it in map_iters:
+        rows += prep + (2 + it if f > 0 else 6 * it)
+        lanes += 5 if f > 0 else 10 * it
+    return rows, lanes
+
+
+def cuda_ms(device, fn):
+    """fn() and its ms between CUDA events (the host clock on the CPU)."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(stop)
+
+
+def launch_counts():
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+
+    return {"map_loop": ml.launches, "gather_rows": gt.launches["gather_rows"],
+            "gather_lanes": gt.launches["gather_lanes"]}
+
+
+def reset_launch_counts():
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.ops import map_loop as ml
+
+    ml.launches = 0
+    gt.reset_launches()
+
+
+def sharded_stream_system(device, seq):
+    """A seeded StreamingShardedSlam of the small configuration over the
+    process group that is up."""
+    from clid_slam_torch.pipeline import bench_cases as bc
+    from clid_slam_torch.pipeline.streaming_sharded import StreamingShardedSlam
+
+    system = StreamingShardedSlam(bc.build_config(large=False), total_frames=bc.TOTAL_FRAMES,
+                                  device=device)
+    system.seed_pose(seq.poses[0][:3, :3], seq.poses[0][:3, 3], bc.initial_velocity(seq, False))
+    return system
+
+
+def check_launches(phase, cfg, tracked, map_iters, launches, wrong):
+    rows, lanes = expected_sharded_launches(cfg, tracked, map_iters)
+    got = (launches["gather_rows"], launches["gather_lanes"])
+    if launches["map_loop"] != 0 or got != (rows, lanes):
+        wrong.append(f"{phase}: launches {launches}, expected gather_rows {rows}, "
+                     f"gather_lanes {lanes}, map_loop 0")
+    return {"gather_rows": rows, "gather_lanes": lanes, "map_loop": 0}
+
+
+def stream_sharded_phase(device, seq, n_frames=25, warmup=10):
+    """StreamingShardedSlam (pipeline/streaming_sharded.py) at world size 1
+    on NCCL over the small sequence, at the small configuration's widths (a
+    shard of 2 x map_capacity rows and a 2 x map_hash_size table): frame
+    0's ms and each warm-up frame's, the steady ms a frame (CUDA events
+    around frames warmup..n-1), ATE under 0.35 m (the JAX package's sharded
+    test's gate), not failed, and the kernels' launches equal to
+    ``expected_sharded_launches`` (map_loop 0: the sharded mapping bodies
+    are the autograd loop). Returns the phase's line and the system."""
+    from clid_slam_torch.utils import metrics
+
+    wrong = []
+    with one_rank_group(device) as backend:
+        system = sharded_stream_system(device, seq)
+        reset_launch_counts()
+        frame_ms = [cuda_ms(device, lambda: system.process_frame(
+            i, seq.scans[i], seq.imu_windows[i]))[1] for i in range(warmup)]
+
+        def steady():
+            for i in range(warmup, n_frames):
+                system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+
+        steady_ms = cuda_ms(device, steady)[1] / (n_frames - warmup)
+        launches = launch_counts()
+        out = system.sync()
+    est = out["odom_poses"][:n_frames]
+    m = metrics.absolute_error(est, seq.poses[:n_frames], align=False)
+    tracked = [i for i in range(1, n_frames) if system.cfg.track_on]
+    want = check_launches("stream_sharded", system.cfg, tracked, out["map_iters"], launches,
+                          wrong)
+    if not (np.isfinite(est).all() and np.isfinite(out["losses"]).all()):
+        wrong.append("non-finite poses or losses")
+    if out["failed"] or not m["ate_rmse_m"] < 0.35:
+        wrong.append(f"ATE {m['ate_rmse_m']} (gate 0.35 m), failed {out['failed']}")
+    res = {
+        "phase": "stream_sharded", "backend": backend, "world_size": system.n_shards,
+        "frames": n_frames, "warmup": warmup, "frame0_ms": frame_ms[0],
+        "warmup_frame_ms": frame_ms, "steady_ms_per_frame": steady_ms,
+        "ate_rmse_m": m["ate_rmse_m"], "are_rmse_deg": m["are_rmse_deg"],
+        "failed": out["failed"], "neural_points": out["neural_points"],
+        "track_iters": out["track_iters"].tolist(), "map_iters": out["map_iters"],
+        "map_loop_launches": launches["map_loop"],
+        "gather_rows_launches": launches["gather_rows"],
+        "gather_lanes_launches": launches["gather_lanes"], "expected_launches": want,
+        "wrong": wrong,
+    }
+    emit(res)
+    if wrong:
+        raise AssertionError(f"stream_sharded: {wrong}")
+    return res, system
+
+
+def sharded_checkpoint_resume(device, seq, reference, split=15):
+    """The stream_sharded run again in a fresh system for frames 0..split-1,
+    saved (one npz in the JAX package's sharded layout), loaded into
+    another fresh system and run on to the end: the trajectory, losses,
+    iteration counts and every state tensor equal ``reference``'s (the
+    finished stream_sharded system) bit for bit."""
+    import torch
+
+    n_frames = len(seq.scans)
+    with one_rank_group(device):
+        first = sharded_stream_system(device, seq)
+        reset_launch_counts()
+        for i in range(split):
+            first.process_frame(i, seq.scans[i], seq.imu_windows[i])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sharded.npz")
+            save_ms = cuda_ms(device, lambda: first.save_checkpoint(path))[1]
+            size_mb = os.path.getsize(path) / 1e6
+            del first
+            resumed = sharded_stream_system(device, seq)
+            load_ms = cuda_ms(device, lambda: resumed.load_checkpoint(path))[1]
+        for i in range(split, n_frames):
+            resumed.process_frame(i, seq.scans[i], seq.imu_windows[i])
+        launches = launch_counts()
+        got, want = resumed.sync(), reference.sync()
+    differ = [k for k in ("odom_poses", "losses", "track_iters", "travel_dist")
+              if not np.array_equal(got[k], want[k])]
+    differ += [k for k in ("neural_points", "failed") if got[k] != want[k]]
+    if got["map_iters"] != want["map_iters"][split:]:
+        differ.append("map_iters")
+    leaves = list(zip(resumed.state.leaves(), reference.state.leaves()))
+    differ += [f"leaf {i}" for i, (a, b) in enumerate(leaves) if not (
+        torch.equal(a.get_state(), b.get_state()) if isinstance(a, torch.Generator)
+        else torch.equal(a, b))]
+    res = {"phase": "sharded_checkpoint_resume", "frames": n_frames,
+           "saved_after_frame": split - 1, "leaves": len(leaves), "file_mb": size_mb,
+           "save_ms": save_ms, "load_ms": load_ms, "differ": differ,
+           "map_loop_launches": launches["map_loop"],
+           "gather_rows_launches": launches["gather_rows"],
+           "gather_lanes_launches": launches["gather_lanes"]}
+    emit(res)
+    if differ:
+        raise AssertionError(f"the resumed sharded run differs from the uninterrupted one: {differ}")
+    return res
+
+
+def classic_sharded_phase(device, seq, n_frames=25, warmup=10):
+    """``run_sharded_slam`` (parallel/distributed.py) with no process group
+    and nothing in the environment, so it brings up a group of this one
+    process on NCCL, over the small sequence at the small configuration's
+    widths: ATE under 0.25 m and ARE under 4 deg (the JAX package's
+    sharded test's gates), the poses equal to a direct ShardedSlamSystem
+    loop's on the same group bit for bit, the launches of the
+    run_sharded_slam run equal to ``expected_sharded_launches``; ms of the
+    whole call, and frame 0's and the steady ms a frame of the direct loop
+    (CUDA events)."""
+    import torch.distributed as dist
+
+    from clid_slam_torch.parallel import distributed as dd
+    from clid_slam_torch.parallel.slam_sharded import ShardedSlamSystem
+    from clid_slam_torch.pipeline import bench_cases as bc
+    from clid_slam_torch.utils import metrics
+
+    cfg = bc.build_config(large=False)
+    rot, pos = seq.poses[0][:3, :3], seq.poses[0][:3, 3]
+    seed = (rot, pos, bc.initial_velocity(seq, False))
+    wrong = []
+    env = [k for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK") if k in os.environ]
+    if dist.is_initialized() or env:
+        raise AssertionError(f"classic_sharded: a process group is up or configured ({env})")
+    try:
+        reset_launch_counts()
+        (poses, system), call_ms = cuda_ms(device, lambda: dd.run_sharded_slam(
+            cfg, seq.scans[:n_frames], seq.imu_windows[:n_frames], seed_pose=seed,
+            device=device))
+        launches = launch_counts()
+        backend, world = dist.get_backend(), dist.get_world_size()
+        points = system.neural_point_count()
+        direct = ShardedSlamSystem(cfg, total_frames=n_frames + 4, device=device)
+        direct.tracker.x.rot, direct.tracker.x.pos = rot.copy(), pos.copy()
+        direct.tracker.x.vel = seed[2].copy()
+        frame_ms = [cuda_ms(device, lambda: direct.process_frame(
+            i, seq.scans[i], seq.imu_windows[i]))[1] for i in range(warmup)]
+
+        def steady():
+            for i in range(warmup, n_frames):
+                direct.process_frame(i, seq.scans[i], seq.imu_windows[i])
+
+        steady_ms = cuda_ms(device, steady)[1] / (n_frames - warmup)
+    finally:
+        dd.shutdown()
+    m = metrics.absolute_error(poses, seq.poses[:n_frames], align=False)
+    tracked = [i for i in range(1, n_frames) if cfg.track_on]
+    want = check_launches("classic_sharded", cfg, tracked, system.map_log, launches, wrong)
+    if not np.array_equal(poses, direct.odom_poses[:n_frames]):
+        wrong.append("run_sharded_slam's poses differ from the direct loop's")
+    if system.failed or not (m["ate_rmse_m"] < 0.25 and m["are_rmse_deg"] < 4.0):
+        wrong.append(f"ATE {m['ate_rmse_m']} m, ARE {m['are_rmse_deg']} deg "
+                     f"(gates 0.25 m, 4 deg), failed {system.failed}")
+    res = {
+        "phase": "classic_sharded", "backend": backend, "world_size": world,
+        "frames": n_frames, "warmup": warmup, "call_ms": call_ms,
+        "call_ms_per_frame": call_ms / n_frames, "frame0_ms": frame_ms[0],
+        "warmup_frame_ms": frame_ms, "steady_ms_per_frame": steady_ms,
+        "ate_rmse_m": m["ate_rmse_m"], "are_rmse_deg": m["are_rmse_deg"],
+        "failed": system.failed, "neural_points": points, "map_iters": system.map_log,
+        "map_loop_launches": launches["map_loop"],
+        "gather_rows_launches": launches["gather_rows"],
+        "gather_lanes_launches": launches["gather_lanes"], "expected_launches": want,
+        "wrong": wrong,
+    }
+    emit(res)
+    if wrong:
+        raise AssertionError(f"classic_sharded: {wrong}")
     return res
 
 
@@ -1824,6 +2123,11 @@ def main():
     prune_check(large_system, 200)
     mesh_large(large_system, large_seq, 200)
     del large_system, large_seq
+    small_seq = bench_cases.make_sequence(False, 25)
+    stream_sh, stream_sh_system = stream_sharded_phase(device, small_seq)
+    resumed_sh = sharded_checkpoint_resume(device, small_seq, stream_sh_system)
+    del stream_sh_system
+    classic_sh = classic_sharded_phase(device, small_seq)
     fallback = stream_phase("stream_fallback", False, 12, 10, device, fused=False,
                             mlp_leaky_relu=True)[0]
     dynba_kw = dict(dynamic_filter_on=True, ba_frame=20, ba_freq_frame=10)
@@ -1861,7 +2165,8 @@ def main():
 
     def by_path(key):
         return {r["phase"]: r[key]
-                for r in (small, large, sharded, fallback, dynba, resumed, requery, *options,
+                for r in (small, large, sharded, stream_sh, resumed_sh, classic_sh, fallback,
+                          dynba, resumed, requery, *options,
                           labelled, classic, pgo, files) if key in r}
 
     main_case = cases[0]  # the bench config: 1 hidden layer, no layer norm

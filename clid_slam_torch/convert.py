@@ -11,7 +11,11 @@
   pool, MLPs, the host filter, the dataset's poses) into the port's;
 - ``sharded_map_from_numpy`` takes one rank's shard of a JAX sharded map
   (leaves with a leading [S] shard axis), ``sharded_map_to_numpy`` gives a
-  rank's shard back as leaves without that axis.
+  rank's shard back as leaves without that axis;
+- ``sharded_stream_state_{from,to}_numpy`` do the same for a whole
+  ``StreamState`` of the sharded streaming driver, in the JAX package's
+  layout: the map's leaves stacked ``[S, ...]``, every other leaf as
+  ``stream_state_{from,to}_numpy`` has it.
 
 Nothing here imports JAX: callers hand over numpy arrays.
 """
@@ -204,3 +208,31 @@ def classic_state_from_numpy(system, arrays: dict) -> None:
     d.processed_frame = int(arrays["processed_frame"])
     td = arrays.get("travel_dist_dev", np.asarray(d.travel_dist)[: system.total_frames])
     system.travel_dist_dev = _t(td, dev, torch.float32)
+
+
+_MAP_AT = 12  # the map's first leaf in the StreamState leaf order
+
+
+def sharded_stream_state_from_numpy(leaves: Sequence, rank: int, device=None) -> StreamState:
+    """This rank's ``StreamState`` from the leaves of a JAX sharded
+    ``StreamState`` (map leaves ``[S, ...]``): shard ``rank`` of the map,
+    the replicated leaves as they are."""
+    L = list(leaves)
+    L[_MAP_AT : _MAP_AT + _MAP_LEAVES] = [np.asarray(a)[rank]
+                                          for a in L[_MAP_AT : _MAP_AT + _MAP_LEAVES]]
+    return stream_state_from_numpy(L, device)
+
+
+def sharded_stream_state_to_numpy(state: StreamState, mesh) -> list:
+    """The leaves of the JAX sharded ``StreamState`` from every rank's
+    state: the map's leaves all-gathered and stacked ``[S, ...]`` in rank
+    order. A collective: every rank of ``mesh`` calls it, and every rank
+    gets the whole list."""
+    from .parallel.collectives import all_gather
+
+    out = stream_state_to_numpy(state)
+    out[_MAP_AT : _MAP_AT + _MAP_LEAVES] = [
+        all_gather(x.reshape(-1), mesh).reshape((mesh.size,) + tuple(x.shape)).cpu().numpy()
+        for x in state.map_state.tensors()
+    ]
+    return out

@@ -57,6 +57,17 @@ def intrinsic_correct(points: np.ndarray, correct_deg: float) -> np.ndarray:
     return out
 
 
+def _calib_matrix(tr) -> Optional[np.ndarray]:
+    """A calibration ``Tr`` of 12 (3x4) or 16 (4x4) values as a 4x4
+    matrix, or None."""
+    if tr is None:
+        return None
+    tr = np.asarray(tr, np.float64).reshape(-1)
+    T = np.eye(4)
+    T[: len(tr) // 4] = tr.reshape(-1, 4)
+    return T
+
+
 class SLAMDataset:
     """``device=None`` means the CUDA card, as for the drivers."""
 
@@ -106,10 +117,14 @@ class SLAMDataset:
 
         # ground truth (optional)
         self.gt_poses: Optional[np.ndarray] = None
+        calib = None
+        if cfg.calib_path and os.path.isfile(cfg.calib_path):
+            calib = io.read_calib_file(cfg.calib_path).get("Tr")
+        elif self.kiss_loader is not None and hasattr(self.kiss_loader, "calibration"):
+            # the loader's LiDAR-to-camera transform, as the reference sets
+            # calib["Tr"] from it (utils/slam_dataset.py:58-81)
+            calib = _calib_matrix(self.kiss_loader.calibration.get("Tr"))
         if cfg.pose_path and os.path.isfile(cfg.pose_path):
-            calib = None
-            if cfg.calib_path and os.path.isfile(cfg.calib_path):
-                calib = io.read_calib_file(cfg.calib_path).get("Tr")
             if cfg.pose_path.endswith(".csv") or "tum" in cfg.pose_path:
                 self.gt_poses, _ = io.read_tum_poses(cfg.pose_path)
             else:
@@ -124,9 +139,11 @@ class SLAMDataset:
             and self.kiss_loader is not None
             and hasattr(self.kiss_loader, "gt_poses")
         ):
-            self.gt_poses = np.asarray(self.kiss_loader.gt_poses)[
-                cfg.begin_frame : cfg.end_frame : cfg.step_frame
-            ]
+            gt = np.asarray(self.kiss_loader.gt_poses, np.float64)
+            if calib is not None:
+                # the calibrated frame of a pose file (io.read_kitti_poses)
+                gt = np.einsum("ij,njk,kl->nil", np.linalg.inv(calib), gt, calib)
+            self.gt_poses = gt[cfg.begin_frame : cfg.end_frame : cfg.step_frame]
         self.gt_pose_provided = self.gt_poses is not None
 
         n = max(self.total_pc_count, self._min_frames)

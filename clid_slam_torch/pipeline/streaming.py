@@ -189,6 +189,83 @@ def prep_kwargs(cfg: Config) -> dict:
     )
 
 
+def predict_imu(cfg: Config, rot, pos, rest, P, imu_rows, imu_count: int):
+    """The IESEKF's IMU propagation over a frame's rows on the device:
+    (rot, pos, rest, P) after it."""
+    f32 = dict(dtype=torch.float32, device=rot.device)
+    Q = torch.zeros((12, 12), **f32)
+    I3 = torch.eye(3, **f32)
+    Q[0:3, 0:3] = cfg.measurement_noise_covariance * I3
+    Q[3:6, 3:6] = cfg.measurement_noise_covariance * I3
+    Q[6:9, 6:9] = cfg.bias_noise_covariance * I3
+    Q[9:12, 9:12] = cfg.bias_noise_covariance * I3
+    rot, pos, vel, bg, ba, grav, P = iekf.device_predict_imu(
+        rot, pos, rest[0:3], rest[3:6], rest[6:9], rest[9:12], P, Q, imu_rows, imu_count,
+    )
+    return rot, pos, torch.cat([vel, bg, ba, grav]), P
+
+
+def source_indices(cfg: Config, points, train_mask, scale):
+    """The tracker's source points: (indices [S] into ``points``, their
+    mask [S]) of the voxel keep-mask at ``source_vox_down_m`` within
+    ``track_max_range``."""
+    S = cfg.max_source_points
+    src_mask = voxel_down_sample_mask(
+        points, train_mask, scale * cfg.source_vox_down_m, cfg.map_hash_size
+    )
+    if cfg.track_max_range > 0:
+        src_mask = src_mask & (torch.linalg.norm(points, dim=-1) <= cfg.track_max_range)
+    n_src = torch.sum(src_mask.to(torch.int32))
+    return compact_indices(src_mask, S), torch.arange(S, device=points.device) < n_src
+
+
+def track_bookkeeping(cfg: Config, state: StreamState, pose, ok):
+    """The stop, lose-track and failure flags after a tracked frame at
+    ``pose``: (stop_count, stop_status, lose_track, consec_lose, failed,
+    the relative transform from the last pose, its translation norm)."""
+    last_tran = torch.linalg.inv(state.last_pose) @ pose
+    tran_norm = torch.linalg.norm(last_tran[:3, 3])
+    I3 = torch.eye(3, device=pose.device)
+    near_I = torch.all(torch.abs(last_tran[:3, :3] - I3) < 1e-3) & torch.all(
+        torch.abs(last_tran[:3, 3]) < cfg.voxel_size_m * 0.1
+    )
+    stop_count = torch.where(near_I, state.stop_count + 1, torch.zeros_like(state.stop_count))
+    stop_status = stop_count > cfg.stop_frame_thre
+    too_big = tran_norm > cfg.surface_sample_range_m * 40.0
+    lose_track = ~ok | too_big
+    consec_lose = torch.where(
+        lose_track, state.consec_lose + 1, torch.zeros_like(state.consec_lose)
+    )
+    failed = state.failed | too_big | (consec_lose > 10)
+    return stop_count, stop_status, lose_track, consec_lose, failed, last_tran, tran_norm
+
+
+def adaptive_iters(cfg: Config, iters_base: int, new_count, cur_count, allow_restart: bool,
+                   stop_status):
+    """The frame's mapping steps on the device (utils/mapper.py:446-459):
+    ``iters_base`` moved by the share of new samples, 10 fewer on a stop,
+    at least 1."""
+    iters = torch.tensor(iters_base, dtype=torch.int32, device=stop_status.device)
+    if cfg.adaptive_iters and cfg.bs_new_sample > 0:
+        ratio = new_count / torch.clamp(cur_count, min=1)
+        offset = torch.where(
+            ratio < cfg.new_sample_ratio_less,
+            torch.full_like(iters, -5),
+            torch.where(
+                ratio > cfg.new_sample_ratio_more,
+                torch.where(
+                    allow_restart & (ratio > cfg.new_sample_ratio_restart),
+                    torch.full_like(iters, 10),
+                    torch.full_like(iters, 5),
+                ),
+                torch.zeros_like(iters),
+            ),
+        )
+        iters = iters + offset
+    iters = torch.where(stop_status, iters - 10, iters)
+    return torch.clamp(iters, min=1)
+
+
 def make_frame_step(cfg: Config, nb_offs, encode_vecs):
     """The four frame-step variants keyed by (track, filter_pool_now):
     step(state, frame_id, points, pmask, point_ts, imu_rows, imu_count,
@@ -197,7 +274,6 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
     points the map trains on before and after the dynamic filter."""
     max_valid_dist2 = _max_valid_dist2(cfg)
     max_sdf_std = cfg.surface_sample_range_m * cfg.max_sdf_std_ratio
-    S = cfg.max_source_points
     window = cfg.diff_travel_dist_local
     n_cand = cfg.track_n_cand or max(16, cfg.query_nn_k * 2)
     make_update = (
@@ -277,9 +353,7 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             "append", "batches": see prep and mapper) in place of the
             state's generator."""
             draws = draws or {}
-            dev = points.device
-            f32 = dict(dtype=torch.float32, device=dev)
-            crop = torch.tensor(crop_max_range, **f32)
+            crop = torch.tensor(crop_max_range, dtype=torch.float32, device=points.device)
             pmask = pmask & crop_mask(points, cfg.min_z, cfg.max_z, cfg.min_range, crop)
             scale = crop / cfg.max_range
             train_mask = voxel_down_sample_mask(
@@ -294,28 +368,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             track_iters = state.track_iters
 
             if track:
-                Q = torch.zeros((12, 12), **f32)
-                I3 = torch.eye(3, **f32)
-                Q[0:3, 0:3] = cfg.measurement_noise_covariance * I3
-                Q[3:6, 3:6] = cfg.measurement_noise_covariance * I3
-                Q[6:9, 6:9] = cfg.bias_noise_covariance * I3
-                Q[9:12, 9:12] = cfg.bias_noise_covariance * I3
-                rot, pos, vel, bg, ba, grav, P = iekf.device_predict_imu(
-                    rot, pos, rest[0:3], rest[3:6], rest[6:9], rest[9:12], P, Q,
-                    imu_rows, imu_count,
-                )
-                rest = torch.cat([vel, bg, ba, grav])
-
-                src_mask = voxel_down_sample_mask(
-                    points, train_mask, scale * cfg.source_vox_down_m, cfg.map_hash_size
-                )
-                if cfg.track_max_range > 0:
-                    src_mask = src_mask & (
-                        torch.linalg.norm(points, dim=-1) <= cfg.track_max_range
-                    )
-                n_src = torch.sum(src_mask.to(torch.int32))
-                src_idx = compact_indices(src_mask, S)
-                smask = torch.arange(S, device=dev) < n_src
+                rot, pos, rest, P = predict_imu(cfg, rot, pos, rest, P, imu_rows, imu_count)
+                src_idx, smask = source_indices(cfg, points, train_mask, scale)
                 src_pts = points[src_idx]
                 if cfg.deskew:
                     rel = torch.linalg.inv(state.last_pose) @ _pose(rot, pos)
@@ -330,19 +384,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                 track_iters = track_iters.clone()
                 track_iters[frame_id] = n_iter
                 pose = _pose(rot, pos)
-                last_tran = torch.linalg.inv(state.last_pose) @ pose
-                tran_norm = torch.linalg.norm(last_tran[:3, 3])
-                near_I = torch.all(torch.abs(last_tran[:3, :3] - I3) < 1e-3) & torch.all(
-                    torch.abs(last_tran[:3, 3]) < cfg.voxel_size_m * 0.1
-                )
-                stop_count = torch.where(near_I, stop_count + 1, torch.zeros_like(stop_count))
-                stop_status = stop_count > cfg.stop_frame_thre
-                too_big = tran_norm > cfg.surface_sample_range_m * 40.0
-                lose_track = ~ok | too_big
-                consec_lose = torch.where(
-                    lose_track, consec_lose + 1, torch.zeros_like(consec_lose)
-                )
-                failed = failed | too_big | (consec_lose > 10)
+                (stop_count, stop_status, lose_track, consec_lose, failed, last_tran,
+                 tran_norm) = track_bookkeeping(cfg, state, pose, ok)
                 travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)] + tran_norm
                 odom_poses[frame_id] = pose
                 if cfg.deskew:
@@ -377,26 +420,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                     append_uniform=draws.get("append"),
                 )
 
-            # adaptive iteration offset (utils/mapper.py:446-459)
-            iters = torch.tensor(iters_base, dtype=torch.int32, device=dev)
-            if cfg.adaptive_iters and cfg.bs_new_sample > 0:
-                ratio = res.new_sample_count / torch.clamp(res.cur_sample_count, min=1)
-                offset = torch.where(
-                    ratio < cfg.new_sample_ratio_less,
-                    torch.full_like(iters, -5),
-                    torch.where(
-                        ratio > cfg.new_sample_ratio_more,
-                        torch.where(
-                            allow_restart & (ratio > cfg.new_sample_ratio_restart),
-                            torch.full_like(iters, 10),
-                            torch.full_like(iters, 5),
-                        ),
-                        torch.zeros_like(iters),
-                    ),
-                )
-                iters = iters + offset
-            iters = torch.where(stop_status, iters - 10, iters)
-            iters = torch.clamp(iters, min=1)
+            iters = adaptive_iters(cfg, iters_base, res.new_sample_count, res.cur_sample_count,
+                                   allow_restart, stop_status)
 
             map_fn = mapping_body_fast if track else mapping_body
             with record_function("frame.map"):
@@ -483,7 +508,7 @@ class StreamingSlam:
             input_dim=cfg.pos_input_dim,
             seed=cfg.seed,
         )
-        self.steps = make_frame_step(cfg, self.nb_offs, self.encode_vecs)
+        self.steps = self._make_steps()
         self._ba_step = (
             make_ba_step(cfg, self.nb_offs, self.encode_vecs) if cfg.ba_freq_frame > 0 else None
         )
@@ -503,6 +528,18 @@ class StreamingSlam:
         # (frame_id, start, end) of every BA call: CUDA events around it on
         # the card (read in sync()), None on the CPU
         self.ba_log = []
+
+    # factory hooks (StreamingShardedSlam overrides both: a sharded map and a
+    # collective frame step over the same StreamState)
+    def _make_steps(self):
+        return make_frame_step(self.cfg, self.nb_offs, self.encode_vecs)
+
+    def _init_map_state(self) -> nm.NeuralMapState:
+        cfg = self.cfg
+        return nm.init_map(
+            cfg.map_capacity, cfg.map_hash_size, cfg.feature_dim,
+            cfg.feature_dim if cfg.color_on else 1, device=self.device,
+        )
 
     def _init_state(self):
         cfg, dev = self.cfg, self.device
@@ -545,10 +582,7 @@ class StreamingSlam:
             stop_count=torch.zeros((), dtype=torch.int32, device=dev),
             stop_status=torch.zeros((), dtype=torch.bool, device=dev),
             failed=torch.zeros((), dtype=torch.bool, device=dev),
-            map_state=nm.init_map(
-                cfg.map_capacity, cfg.map_hash_size, cfg.feature_dim,
-                cfg.feature_dim if cfg.color_on else 1, device=dev,
-            ),
+            map_state=self._init_map_state(),
             local_map=lm.init_local_map(
                 cfg.local_map_capacity, cfg.local_map_hash_size, device=dev
             ),
@@ -690,15 +724,12 @@ class StreamingSlam:
         leaf order), plus the generator's state (``gen_state``) and the
         counters ``sync()`` reports, so that a resumed run continues
         exactly where this one stopped."""
-        from ..convert import stream_state_to_numpy
-
         self.block()
-        leaves = stream_state_to_numpy(self.state)
+        leaves = self._state_to_numpy()
         log = lambda entries: np.array(
             [(f, int(b), int(a)) for f, b, a in entries], np.int64
         ).reshape(-1, 3)
-        np.savez_compressed(
-            path,
+        self._write_checkpoint(path, dict(
             n_leaves=len(leaves),
             processed=self.processed,
             gen_state=self.state.key.get_state().numpy(),
@@ -707,7 +738,22 @@ class StreamingSlam:
             filter_log=log(self.filter_log),
             ba_frames=np.array([f for f, _, _ in self.ba_log], np.int64),
             **{f"leaf_{i}": v for i, v in enumerate(leaves)},
-        )
+        ))
+
+    # checkpoint hooks (StreamingShardedSlam overrides them: JAX's stacked
+    # layout, written by one rank)
+    def _state_to_numpy(self) -> list:
+        from ..convert import stream_state_to_numpy
+
+        return stream_state_to_numpy(self.state)
+
+    def _state_from_numpy(self, leaves) -> StreamState:
+        from ..convert import stream_state_from_numpy
+
+        return stream_state_from_numpy(leaves, self.device)
+
+    def _write_checkpoint(self, path: str, arrays: dict):
+        np.savez_compressed(path, **arrays)
 
     def load_checkpoint(self, path: str):
         """Restore a ``save_checkpoint`` file of a system of the same
@@ -715,8 +761,6 @@ class StreamingSlam:
         it. A file of the JAX package carries no generator state: the
         generator is then seeded from its key leaf, so the draws differ
         from the JAX run's."""
-        from ..convert import stream_state_from_numpy
-
         with np.load(path) as z:
             n = int(z["n_leaves"])
             want = len(self.state.leaves())
@@ -724,7 +768,7 @@ class StreamingSlam:
                 raise ValueError(
                     f"checkpoint has {n} state leaves, this config builds {want} — config mismatch"
                 )
-            state = stream_state_from_numpy([z[f"leaf_{i}"] for i in range(n)], self.device)
+            state = self._state_from_numpy([z[f"leaf_{i}"] for i in range(n)])
             if "gen_state" in z.files:
                 state.key.set_state(torch.from_numpy(z["gen_state"]))
             dropped = int(z["insert_dropped"]) if "insert_dropped" in z.files else 0

@@ -56,6 +56,7 @@ def _read_mesh_ply(path: str):
                 break
         n_vert = n_face = 0
         vert_props = []
+        face_types = ("uchar", "int")
         in_vert = in_face = False
         fmt = "binary_little_endian"
         for line in header:
@@ -73,23 +74,32 @@ def _read_mesh_ply(path: str):
                     n_face = int(t[2])
             elif t[0] == "property" and in_vert and t[1] != "list":
                 vert_props.append((t[2], t[1]))
+            elif t[0] == "property" and in_face and t[1] == "list":
+                face_types = (t[2], t[3])  # list <count type> <index type>
         np_type = {
-            "float": "f4", "float32": "f4", "double": "f8",
-            "uchar": "u1", "uint8": "u1", "int": "i4", "uint": "u4",
+            "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+            "char": "i1", "int8": "i1", "uchar": "u1", "uint8": "u1",
+            "short": "i2", "int16": "i2", "ushort": "u2", "uint16": "u2",
+            "int": "i4", "int32": "i4", "uint": "u4", "uint32": "u4",
         }
+        end = ">" if fmt == "binary_big_endian" else "<"
         if fmt == "ascii":
             verts = np.loadtxt(
                 f, max_rows=n_vert, dtype=np.float64
             ).reshape(n_vert, -1)
             vdata = {nm: verts[:, i] for i, (nm, _) in enumerate(vert_props)}
-            tris = np.loadtxt(f, max_rows=n_face, dtype=np.int64)[:, 1:4]
+            # one face reads as a 1-D row: keep the [n_face, 1 + 3] shape
+            tris = np.loadtxt(
+                f, max_rows=n_face, dtype=np.int64
+            ).reshape(n_face, -1)[:, 1:4]
         else:
             dt = np.dtype(
-                [(nm, "<" + np_type[ty]) for nm, ty in vert_props]
+                [(nm, end + np_type[ty]) for nm, ty in vert_props]
             )
             raw = np.frombuffer(f.read(n_vert * dt.itemsize), dtype=dt)
             vdata = {nm: np.asarray(raw[nm]) for nm, _ in vert_props}
-            fdt = np.dtype([("n", "u1"), ("idx", "<i4", (3,))])
+            cnt, idx = (end + np_type[ty] for ty in face_types)
+            fdt = np.dtype([("n", cnt), ("idx", idx, (3,))])
             tris = np.frombuffer(
                 f.read(n_face * fdt.itemsize), dtype=fdt
             )["idx"]

@@ -18,7 +18,8 @@ def _port_sources():
     root = os.path.join(REPO, "clid_slam_torch")
     # chip_smoke.py and the modules the sharded tests' spawned ranks import
     out = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(REPO, "tests", f) for f in ("torch_dist.py", "torch_sharded_ranks.py")]
+        os.path.join(REPO, "tests", f)
+        for f in ("torch_dist.py", "torch_sharded_ranks.py", "torch_driver_ranks.py")]
     for d, dirs, files in os.walk(root):
         dirs[:] = [x for x in dirs if x not in ("build", "__pycache__")]  # build output
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -34,9 +35,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "clid_slam_torch.__path__, 'clid_slam_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert {'clid_slam_torch.parallel.collectives', 'clid_slam_torch.parallel.spatial', "
-        "'clid_slam_torch.parallel.data_parallel'} <= set(mods), mods\n"
+        "'clid_slam_torch.parallel.data_parallel', 'clid_slam_torch.parallel.slam_sharded', "
+        "'clid_slam_torch.parallel.distributed', 'clid_slam_torch.pipeline.streaming_sharded', "
+        "'clid_slam_torch.tools.run_multiprocess'} <= set(mods), mods\n"
         "import chip_smoke\n"
-        "import torch_dist, torch_sharded_ranks  # the spawned ranks' modules\n"
+        "import torch_dist, torch_sharded_ranks, torch_driver_ranks  # the spawned ranks'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'clid_slam_tpu')]\n"
         "assert not bad, bad\n"
@@ -91,10 +94,14 @@ def test_mesh_and_tool_modules_are_the_ports_own():
 
 def test_sharded_runtime_modules_are_the_ports_own():
     """The sharded runtime (collectives, the data-parallel mapper, the
-    sharded map) is files of the port, in the source scan above, naming no
-    module of the JAX package."""
+    sharded map, the sharded drivers and the multi-process runtime with its
+    two-process check) is files of the port, in the source scan above,
+    naming no module of the JAX package."""
     rels = ("clid_slam_torch/parallel/__init__.py", "clid_slam_torch/parallel/collectives.py",
-            "clid_slam_torch/parallel/data_parallel.py", "clid_slam_torch/parallel/spatial.py")
+            "clid_slam_torch/parallel/data_parallel.py", "clid_slam_torch/parallel/spatial.py",
+            "clid_slam_torch/parallel/slam_sharded.py", "clid_slam_torch/parallel/distributed.py",
+            "clid_slam_torch/pipeline/streaming_sharded.py",
+            "clid_slam_torch/tools/run_multiprocess.py")
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     for rel in rels:
         assert rel in scanned, rel
@@ -109,9 +116,12 @@ def test_sharded_runtime_modules_are_the_ports_own():
 
 def test_entry_points_default_to_cuda(tmp_path):
     from clid_slam_torch import resolve_device
+    from clid_slam_torch.parallel.distributed import initialize, run_sharded_slam
+    from clid_slam_torch.parallel.slam_sharded import ShardedSlamSystem
     from clid_slam_torch.parallel.spatial import init_sharded_map
     from clid_slam_torch.pipeline.slam import SlamSystem, main, run_slam
     from clid_slam_torch.pipeline.streaming import StreamingSlam
+    from clid_slam_torch.pipeline.streaming_sharded import StreamingShardedSlam
     from clid_slam_torch.pipeline.synthetic import generate_sequence, write_sequence_dataset
     from torch_parity import port_config, tiny_config
 
@@ -129,6 +139,10 @@ def test_entry_points_default_to_cuda(tmp_path):
             lambda: run_slam(cfg_path),
             lambda: main([cfg_path]),
             lambda: init_sharded_map(None, 16, 64, 8),
+            lambda: initialize(),
+            lambda: ShardedSlamSystem(port_config(tiny_config()), total_frames=4),
+            lambda: StreamingShardedSlam(port_config(tiny_config()), total_frames=4),
+            lambda: run_sharded_slam(port_config(tiny_config()), [], []),
         ):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 make()

@@ -4,7 +4,9 @@
 (``torch.multiprocessing``, start method ``spawn``) that join one gloo
 process group through a ``FileStore`` under ``tmp_path`` (no TCP port, so
 parallel test workers cannot clash), run ``case(mesh, inputs)`` and hand
-back its result, one per rank, as pickled numpy. ``case`` is named as
+back its result, one per rank, as pickled numpy (with ``group=False`` the
+ranks start without a group and the case brings one up itself, its mesh a
+``Mesh(None, rank, size)``). ``case`` is named as
 "module:function" and must live in a module that imports neither JAX nor
 clid_slam_tpu (``torch_sharded_ranks``), so a child never starts XLA.
 
@@ -27,25 +29,28 @@ COLLECTIVE_TIMEOUT_S = 60
 DEADLINE_S = 240
 
 
-def _rank_main(case, rank, size, tmp, timeout_s):
+def _rank_main(case, rank, size, tmp, timeout_s, group=True):
     err_path = os.path.join(tmp, f"rank{rank}.err")
     try:
         import torch
         import torch.distributed as dist
 
-        torch.set_num_threads(1)
-        store = dist.FileStore(os.path.join(tmp, "store"), size)
-        dist.init_process_group("gloo", store=store, rank=rank, world_size=size,
-                                timeout=datetime.timedelta(seconds=timeout_s))
-        from clid_slam_torch.parallel.collectives import make_group_mesh
+        from clid_slam_torch.parallel.collectives import Mesh, make_group_mesh
 
+        torch.set_num_threads(1)
+        if group:
+            store = dist.FileStore(os.path.join(tmp, "store"), size)
+            dist.init_process_group("gloo", store=store, rank=rank, world_size=size,
+                                    timeout=datetime.timedelta(seconds=timeout_s))
         with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
             inputs = pickle.load(f)
         mod, fn = case.split(":")
-        out = getattr(importlib.import_module(mod), fn)(make_group_mesh(size), inputs)
+        mesh = make_group_mesh(size) if group else Mesh(None, rank, size)
+        out = getattr(importlib.import_module(mod), fn)(mesh, inputs)
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     except BaseException:
         with open(err_path, "w") as f:
             f.write(traceback.format_exc())
@@ -57,7 +62,7 @@ class Ranks:
     """Spawned ranks of one case; ``join()`` waits for them."""
 
     def __init__(self, case, size, inputs, tmp_path, deadline_s=DEADLINE_S,
-                 timeout_s=COLLECTIVE_TIMEOUT_S):
+                 timeout_s=COLLECTIVE_TIMEOUT_S, group=True):
         import torch.multiprocessing as mp
 
         self.case, self.size, self.tmp = case, size, str(tmp_path)
@@ -69,7 +74,8 @@ class Ranks:
             pickle.dump(inputs, f)
         ctx = mp.get_context("spawn")
         self.procs = [
-            ctx.Process(target=_rank_main, args=(case, r, size, self.tmp, timeout_s), daemon=True)
+            ctx.Process(target=_rank_main, args=(case, r, size, self.tmp, timeout_s, group),
+                        daemon=True)
             for r in range(size)
         ]
         for p in self.procs:

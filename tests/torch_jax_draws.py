@@ -10,13 +10,20 @@ import jax
 import torch
 
 
-def frame_draws(cfg, key, n_batches=1):
+def frame_draws(cfg, key, n_batches=1, sharded=False):
     """``(next_key, draws)`` for one frame from the driver's key before it;
     ``n_batches`` replay batches (frame 0's general body takes
-    ceil(iters / map_resample_every))."""
+    ceil(iters / map_resample_every)). ``sharded``: the sharded drivers'
+    chain (clid_slam_tpu/parallel/slam_sharded.py:311,351,364 and
+    pipeline/streaming_sharded.py:281,318,350), which splits the append's
+    key from the system's key, not from the prep key."""
     P, S = cfg.max_scan_points, cfg.all_sample_n
     key, k_prep = jax.random.split(key)
-    k_s, k_over = jax.random.split(k_prep)
+    if sharded:
+        k_s = k_prep
+        key, k_over = jax.random.split(key)
+    else:
+        k_s, k_over = jax.random.split(k_prep)
     ks, kf, kb = jax.random.split(k_s, 3)
     key, k_map = jax.random.split(key)
 
@@ -47,3 +54,12 @@ def first_frame_batches(cfg) -> int:
     """Replay batches frame 0's general body can take (adaptive offset
     included)."""
     return -(-(cfg.iters * cfg.init_iter_ratio + 10) // max(1, cfg.map_resample_every))
+
+
+def fixed(draws, pool):
+    """``draws`` with its batch functions evaluated on ``pool`` (the JAX
+    system's pool after the frame's append: mapping does not change it),
+    as plain arrays that pickle to a spawned rank."""
+    out = dict(draws, append=draws["append"].numpy())
+    out["batches"] = [b(pool) for b in draws["batches"]]
+    return out
