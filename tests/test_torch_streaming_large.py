@@ -31,6 +31,16 @@ signed mean outgrows the frames before it; FILE gets one JSON line a frame:
 
     JAX_PLATFORMS=cpu python tests/test_torch_streaming_large.py 70 --full \
         --device cpu --arrays every_array.jsonl
+
+``--jax-fused`` (either mode) maps the JAX package's tracked frames on its
+fused Pallas kernel, interpreted off the TPU, instead of its XLA loop
+(``torch_jax_draws.jax_fused``): both packages then follow the kernel's
+rule at saturated samples, the port's tracked frames running the kernel
+(card) or its plain version (CPU). It prints the kernel's builds and calls
+at the end:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_streaming_large.py 70 --full \
+        --device cpu --arrays fused.jsonl --jax-fused
 """
 
 import os
@@ -48,6 +58,7 @@ from clid_slam_torch.pipeline.streaming import StreamingSlam as TorchSlam
 from clid_slam_tpu.pipeline.streaming import StreamingSlam as JaxSlam
 from clid_slam_tpu.pipeline.synthetic import generate_sequence, large_world
 from test_torch_streaming import _jax_frame_draws
+from torch_jax_draws import jax_fused
 from torch_parity import n, port_config
 from torch_seed_sweep import cut_large
 
@@ -309,23 +320,10 @@ def every_array(n_frames, full, device, out_path, feed_prep=False):
         fh.close()
 
 
-if __name__ == "__main__":
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("frames", type=int, nargs="?", default=45)
-    ap.add_argument("--full", action="store_true", help="uncut, for a card")
-    ap.add_argument("--device", default="cpu", help="the port's device")
-    ap.add_argument("--arrays", metavar="FILE", default=None,
-                    help="compare every array of the state; one JSON line a frame to FILE")
-    ap.add_argument("--feed-prep", action="store_true",
-                    help="with --arrays: the port's mapper takes the JAX prep's map and pool")
-    args = ap.parse_args()
-    if args.arrays:
-        every_array(args.frames, args.full, args.device, args.arrays, args.feed_prep)
-        sys.exit(0)
+def one_step_report(frames, full, device):
+    """One line a frame of ``one_step_ahead``, then the z summary."""
     dz = []
-    for frame, port, s in one_step_ahead(args.frames, full=args.full, device=args.device):
+    for frame, port, s in one_step_ahead(frames, full=full, device=device):
         pp, pj = n(port.state.odom_poses[frame]), np.asarray(s.state.odom_poses[frame])
         r = np.abs(n(port.state.rest) - np.asarray(s.state.rest)).max()
         live = int(s.state.map_state.count)
@@ -339,3 +337,26 @@ if __name__ == "__main__":
               f"ints port {_ints(port.state, frame)} jax {_ints(s.state, frame)}", flush=True)
     print(f"z of the port minus z of JAX, one step ahead: mean {np.mean(dz):+.3e}, "
           f"std {np.std(dz):.3e} over {len(dz)} frames")
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("frames", type=int, nargs="?", default=45)
+    ap.add_argument("--full", action="store_true", help="uncut, for a card")
+    ap.add_argument("--device", default="cpu", help="the port's device")
+    ap.add_argument("--arrays", metavar="FILE", default=None,
+                    help="compare every array of the state; one JSON line a frame to FILE")
+    ap.add_argument("--feed-prep", action="store_true",
+                    help="with --arrays: the port's mapper takes the JAX prep's map and pool")
+    ap.add_argument("--jax-fused", action="store_true",
+                    help="the JAX package's tracked frames on its Pallas kernel (interpreted)")
+    args = ap.parse_args()
+    with jax_fused(args.jax_fused) as count:
+        if args.arrays:
+            every_array(args.frames, args.full, args.device, args.arrays, args.feed_prep)
+        else:
+            one_step_report(args.frames, args.full, args.device)
+        builds, calls = count.read()
+        print(f"JAX fused kernel: builds {builds}, calls {calls}", flush=True)

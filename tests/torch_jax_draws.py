@@ -3,7 +3,11 @@ the port's drivers (``process_frame(..., draws=...)``), so that the port
 can run the JAX tests' own random experiment: the JAX drivers start from
 ``PRNGKey(seed)`` split for the three decoders and then split their key
 twice a frame, for map prep and for mapping (clid_slam_tpu/pipeline/
-slam.py:466,523 and streaming.py:450,490)."""
+slam.py:466,523 and streaming.py:450,490). ``jax_fused`` puts the JAX
+frame step's tracked frames on the package's Pallas mapping kernel off the
+TPU and counts the kernel's builds and calls."""
+
+import contextlib
 
 import numpy as np
 import jax
@@ -63,3 +67,83 @@ def fixed(draws, pool):
     out = dict(draws, append=draws["append"].numpy())
     out["batches"] = [b(pool) for b in draws["batches"]]
     return out
+
+
+class PallasCount:
+    """What the JAX package's fused mapping kernel did under ``jax_fused``:
+    ``builds`` counts calls of ``make_pallas_map_loop`` (one a trace of a
+    frame step that maps on the kernel), ``calls`` the executions of the
+    function it returns (one a tracked frame that ran the kernel)."""
+
+    def __init__(self):
+        self.builds = 0
+        self.calls = 0
+
+    def _tick(self, _losses):
+        self.calls += 1
+
+    def read(self):
+        """(builds, calls), after every pending kernel call has run."""
+        jax.effects_barrier()
+        return self.builds, self.calls
+
+
+@contextlib.contextmanager
+def jax_fused(on=True):
+    """JAX's tracked-frame mapping body on its Pallas path on any backend.
+
+    The JAX frame step passes ``use_pallas=cfg.map_pallas and
+    jax.default_backend() == "tpu"`` to its fast body (``max_outer=1``;
+    clid_slam_tpu/pipeline/streaming.py:240-247), so off the TPU its
+    tracked frames run the XLA loop. Inside this context a frame step built
+    by ``make_frame_step`` gives that body, and only that body,
+    ``use_pallas=cfg.map_pallas``; the mapper then runs the kernel in
+    interpret mode off the TPU (clid_slam_tpu/mapping/mapper.py:911-913).
+    Build and run the JAX system inside the context: the mapper builds the
+    kernel when the frame step is traced.
+
+    The mapper falls back to the XLA loop without a word for a config the
+    kernel does not take, so the context also counts (``PallasCount``) the
+    kernel's builds and its calls; a call is counted where it runs, by a
+    ``jax.debug.callback`` on the kernel's losses. ``on=False`` only counts.
+    Nothing of the random key chain changes: both loops split the mapping
+    key once and draw the batch from the second half (``build_cache``)."""
+    from clid_slam_tpu.mapping import mapper as jmp
+    from clid_slam_tpu.ops import pallas_mapping as jpm
+    from clid_slam_tpu.pipeline import streaming as jst
+
+    count = PallasCount()
+    real_build, real_fn, real_step = jpm.make_pallas_map_loop, jmp.make_mapping_fn, jst.make_frame_step
+    map_pallas = []  # cfg.map_pallas of the frame step being built
+
+    def build(**kw):
+        count.builds += 1
+        run = real_build(**kw)
+
+        def counted(*args):
+            out = run(*args)
+            jax.debug.callback(count._tick, out[2])
+            return out
+
+        return counted
+
+    def frame_step(cfg, *args, **kw):
+        map_pallas.append(bool(cfg.map_pallas))
+        try:
+            return real_step(cfg, *args, **kw)
+        finally:
+            map_pallas.pop()
+
+    def mapping_fn(**kw):
+        if map_pallas and kw.get("max_outer") == 1:
+            kw["use_pallas"] = map_pallas[-1]
+        return real_fn(**kw)
+
+    jpm.make_pallas_map_loop = build
+    if on:
+        jmp.make_mapping_fn, jst.make_frame_step = mapping_fn, frame_step
+    try:
+        yield count
+    finally:
+        jpm.make_pallas_map_loop = real_build
+        jmp.make_mapping_fn, jst.make_frame_step = real_fn, real_step

@@ -45,6 +45,16 @@ version (``ops/map_loop.py:map_loop_reference``) on the port's device in
 place of its kernel: on the card this sets the kernel's rounding against
 the reference's on the same seeds.
 
+``--jax-fused`` puts the JAX package's tracked frames on its fused mapping
+kernel (Pallas, interpreted off the TPU) instead of its XLA loop
+(``torch_jax_draws.jax_fused``), so that both packages map on one rule;
+each JAX run then must call the kernel once a tracked frame. The uncut
+pairs of the large scenario, the JAX package on the CPU of the card's
+machine:
+
+    JAX_PLATFORMS=cpu python tests/torch_seed_sweep.py --scenario large \
+        --full --side jax --jax-fused --seeds 42,0-9
+
 Prints one line per seed and side, then one JSON summary line.
 """
 
@@ -198,6 +208,8 @@ def main():
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--k1", choices=("kernel", "plain"), default="kernel",
                     help="the port's fused mapping loop: its kernel or its plain version")
+    ap.add_argument("--jax-fused", action="store_true",
+                    help="the JAX package's tracked frames on its Pallas kernel (interpreted)")
     ap.add_argument("--set", action="append", default=[], metavar="NAME=VALUE",
                     help="a config field for every run (a Python literal), repeatable")
     args = ap.parse_args()
@@ -215,6 +227,7 @@ def main():
         port_mapper.map_loop = map_loop_reference
     sides = ("jax", "torch") if args.side == "both" else (args.side,)
     ate = {s: [] for s in sides}
+    last_z = {s: [] for s in sides}
     for side in sides:
         make_cfg, seq, vel, total = _scenario(args.scenario, side, args.full, args.frames)
 
@@ -235,24 +248,40 @@ def main():
             kw = {"device": args.device}
         n = len(seq.scans)
         for seed in _seeds(args.seeds):
+            note = ""
             if side == "torch_jax_draws":
                 out = _run_on_jax_draws(make(seed=seed), seq, vel, total, args.device)
+            elif side == "jax":
+                from torch_jax_draws import jax_fused
+
+                with jax_fused(args.jax_fused) as count:
+                    out = _run(StreamingSlam(make(seed=seed), total_frames=total, **kw), seq, vel)
+                    builds, calls = count.read()
+                if args.jax_fused and calls != n - 1:
+                    raise SystemExit(f"seed {seed}: the JAX kernel ran {calls} times for "
+                                     f"{n - 1} tracked frames")
+                note = f", kernel builds {builds} calls {calls}" if args.jax_fused else ""
             else:
+                from clid_slam_torch.ops import map_loop as k1
+
+                k1.launches = 0
                 out = _run(StreamingSlam(make(seed=seed), total_frames=total, **kw), seq, vel)
+                note = f", K1 launches {k1.launches}"
             est = np.asarray(out["odom_poses"])[:n]
             m = metrics.absolute_error(est, seq.poses[:n], align=False)
             ate[side].append(m["ate_rmse_m"])
             last = est[-1, :3, 3] - seq.poses[n - 1, :3, 3]
+            last_z[side].append(float(last[2]))
             print(f"{side} seed {seed}: ATE {m['ate_rmse_m']:.4f} m, "
                   f"ARE {m['are_rmse_deg']:.3f} deg, failed {out['failed']}, "
-                  f"last error xyz {np.round(last, 3).tolist()}", flush=True)
+                  f"last error xyz {np.round(last, 3).tolist()}{note}", flush=True)
     print(json.dumps({
         s: {"n": len(v), "ate_m": [float(a) for a in v],
             "ate_mean_m": float(np.mean(v)), "ate_std_m": float(np.std(v)),
             "ate_min_m": float(np.min(v)), "ate_max_m": float(np.max(v)),
-            "over_0.2m": int(np.sum(np.asarray(v) >= 0.2))}
+            "over_0.2m": int(np.sum(np.asarray(v) >= 0.2)), "last_z_error_m": last_z[s]}
         for s, v in ate.items()
-    } | {"scenario": args.scenario, "frames": args.frames, "set": overrides, "full": args.full,
+    } | {"scenario": args.scenario, "seeds": _seeds(args.seeds), "jax_fused": args.jax_fused, "frames": args.frames, "set": overrides, "full": args.full,
          "device": args.device,
          "k1": args.k1,
          "torch_threads": torch.get_num_threads()}))
