@@ -34,6 +34,14 @@ Phases, each printing one JSON line:
           library-call ms (and table[idx] at the mirror shapes) and the
           card's bound; then the host time of one call of each gather
           wrapper and of the library calls beside them;
+  precompile  StreamingSlam.precompile() on the small configuration: a
+          fresh process with an empty build directory runs it (every kernel
+          compiles at its first use there) and then 12 frames of the small
+          sequence; a second fresh one runs the frames without it:
+          precompile's ms (host clock, CUDA events) and its launches by
+          kernel, frames 0 and 1 on either side (host clock up to the
+          card's idle) and their difference, the one-time cost that
+          precompile moved out of the loop; the two runs equal bit for bit;
   stream  the port's StreamingSlam on the bench's small sequence
           (1024x32 beams, 25 frames as bench.py runs them: 10 warm-up
           frames, 15 timed), with ATE/ARE against ground truth and the
@@ -90,6 +98,11 @@ Phases, each printing one JSON line:
           in the JAX package's sharded layout), loaded into a fresh system
           and run on: frames 15-24, losses, iteration counts and every
           state tensor equal stream_sharded's bit for bit;
+  sharded_precompile  StreamingShardedSlam.precompile() at world size 1 in
+          a new NCCL group (its first collectives set the communicator up):
+          its ms and launches, then frames 0 and 1 (host clock and CUDA
+          events) beside stream_sharded's frame 0; poses, losses and mapping
+          steps equal stream_sharded's bit for bit;
   classic_sharded  run_sharded_slam (parallel/distributed.py) with no
           process group and nothing in the environment (it brings up a
           one-process NCCL group) over the same 25 frames: ATE under
@@ -1674,6 +1687,159 @@ def classic_sharded_phase(device, seq, n_frames=25, warmup=10):
     return res
 
 
+PRECOMPILE_FRAMES = 12
+
+
+def precompile_child(mode, out_path):
+    """One side of the precompile phase, in a fresh process with an empty
+    build directory, so that every first-use cost is paid in it: the small
+    configuration's StreamingSlam over PRECOMPILE_FRAMES frames of the small
+    sequence, after ``precompile()`` ("warm") or without it ("cold"). Each
+    frame is timed on the host clock up to the card's idle (the frame as
+    the host sees it). Writes the trajectory, losses and iteration counts
+    to ``out_path`` (npz) and prints one JSON line."""
+    import torch
+
+    from clid_slam_torch import set_full_precision
+    from clid_slam_torch.ops import _build
+
+    set_full_precision()
+    device = torch.device("cuda", 0)
+    n = PRECOMPILE_FRAMES
+    with tempfile.TemporaryDirectory() as build_dir:
+        _build.BUILD_DIR = build_dir  # nothing built: the kernels compile at first use
+        t0 = time.perf_counter()
+        cfg, seq, system = make_system(False, n, device)
+        res = {"mode": mode, "construct_ms": (time.perf_counter() - t0) * 1e3}
+        if mode == "warm":
+            reset_launch_counts()
+            res["precompile_host_ms"], res["precompile_event_ms"] = host_and_event_ms(
+                device, system.precompile)
+            res["precompile_launches"] = launch_counts()
+        reset_launch_counts()
+        frame_ms = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+            system.block()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        res["frame_ms"] = frame_ms
+        res["frame_launches"] = launch_counts()
+        res["built"] = sorted(os.listdir(build_dir))
+    out = system.sync()
+    np.savez(out_path, odom_poses=out["odom_poses"], losses=out["losses"],
+             track_iters=out["track_iters"])
+    emit(res)
+
+
+def precompile_phase():
+    """``StreamingSlam.precompile()`` (pipeline/streaming.py) on the small
+    configuration: a fresh process runs it and then PRECOMPILE_FRAMES
+    frames; a second fresh process runs the same frames without it. Each
+    starts with an empty build directory, so its first use of a kernel
+    compiles it. Printed: precompile's ms (host clock and CUDA events) and
+    its launches by kernel (map_loop once a tracked variant, so 2; the
+    gathers' counts), frame 0's and frame 1's ms on either side and the
+    one-time share of each (cold minus warm). Fails unless the two
+    trajectories, losses and iteration counts are equal bit for bit and
+    precompile launched every kernel of the path."""
+    import subprocess
+
+    sides = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("warm", "cold"):
+            path = os.path.join(tmp, f"{mode}.npz")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--precompile-child", mode, path],
+                capture_output=True, text=True, timeout=400, cwd=REPO)
+            if proc.returncode != 0:
+                raise AssertionError(f"precompile child {mode} failed:\n{proc.stderr[-4000:]}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            res["process_s"] = time.perf_counter() - t0
+            with np.load(path) as z:
+                res["arrays"] = {k: z[k] for k in z.files}
+            sides[mode] = res
+    warm, cold = sides["warm"], sides["cold"]
+    differ = [k for k in warm["arrays"]
+              if not np.array_equal(warm["arrays"][k], cold["arrays"][k])]
+    pre = warm["precompile_launches"]
+    res = {
+        "phase": "precompile", "frames": PRECOMPILE_FRAMES,
+        "precompile_host_ms": warm["precompile_host_ms"],
+        "precompile_event_ms": warm["precompile_event_ms"],
+        "precompile_launches": pre, "map_loop_launches": pre["map_loop"],
+        "gather_rows_launches": pre["gather_rows"], "gather_lanes_launches": pre["gather_lanes"],
+        "frame_ms_warm": warm["frame_ms"][:2], "frame_ms_cold": cold["frame_ms"][:2],
+        "one_time_ms": [c - w for c, w in zip(cold["frame_ms"][:2], warm["frame_ms"][:2])],
+        "steady_ms_warm": float(np.mean(warm["frame_ms"][2:])),
+        "steady_ms_cold": float(np.mean(cold["frame_ms"][2:])),
+        "all_frame_ms": {"warm": warm["frame_ms"], "cold": cold["frame_ms"]},
+        "frame_launches": {"warm": warm["frame_launches"], "cold": cold["frame_launches"]},
+        "construct_ms": {"warm": warm["construct_ms"], "cold": cold["construct_ms"]},
+        "process_s": {"warm": warm["process_s"], "cold": cold["process_s"]},
+        "built": {"warm": warm["built"], "cold": cold["built"]},
+        "differ": differ,
+    }
+    emit(res)
+    if differ:
+        raise AssertionError(f"precompile changed the run: {differ}")
+    if pre["map_loop"] != 2 or pre["gather_rows"] == 0 or pre["gather_lanes"] == 0:
+        raise AssertionError(f"precompile did not launch every kernel of the path: {pre}")
+    if warm["frame_launches"] != cold["frame_launches"]:
+        raise AssertionError(f"the frames' launches differ: {res['frame_launches']}")
+    return res
+
+
+def host_and_event_ms(device, fn):
+    """(host ms, CUDA-event ms) of fn(), both up to the card's idle."""
+    t0 = time.perf_counter()
+    event_ms = cuda_ms(device, fn)[1]
+    return (time.perf_counter() - t0) * 1e3, event_ms
+
+
+def sharded_precompile_phase(device, seq, reference, reference_frame0_ms, n_frames=2):
+    """``StreamingShardedSlam.precompile()`` at world size 1 on NCCL in a
+    new process group, so that its first collectives set the communicator
+    up: precompile's ms (host clock and CUDA events) and launches, then
+    frames 0..n_frames-1 timed the same two ways, beside stream_sharded's
+    frame 0 (``reference_frame0_ms``, CUDA events, no precompile). The
+    frames' poses, losses, iteration counts and mapping steps equal
+    ``reference``'s (the finished stream_sharded system) bit for bit, and
+    precompile leaves ``map_iters`` empty."""
+    wrong = []
+    with one_rank_group(device) as backend:
+        system = sharded_stream_system(device, seq)
+        reset_launch_counts()
+        host_ms, event_ms = host_and_event_ms(device, system.precompile)
+        launches = launch_counts()
+        if system.map_log:
+            wrong.append(f"precompile left map_iters {system.map_log}")
+        if launches["gather_rows"] == 0 or launches["gather_lanes"] == 0:
+            wrong.append(f"precompile did not launch the gathers: {launches}")
+        frames = [host_and_event_ms(device, lambda: system.process_frame(
+            i, seq.scans[i], seq.imu_windows[i])) for i in range(n_frames)]
+        got, want = system.sync(), reference.sync()
+    for k in ("odom_poses", "losses", "track_iters"):
+        if not np.array_equal(got[k], want[k][:n_frames]):
+            wrong.append(k)
+    if got["map_iters"] != want["map_iters"][:n_frames]:
+        wrong.append(f"map_iters {got['map_iters']} != {want['map_iters'][:n_frames]}")
+    res = {"phase": "sharded_precompile", "backend": backend, "world_size": system.n_shards,
+           "precompile_host_ms": host_ms, "precompile_event_ms": event_ms,
+           "precompile_launches": launches, "map_loop_launches": launches["map_loop"],
+           "gather_rows_launches": launches["gather_rows"],
+           "gather_lanes_launches": launches["gather_lanes"],
+           "frame_host_ms": [h for h, _ in frames],
+           "frame_event_ms": [e for _, e in frames],
+           "stream_sharded_frame0_event_ms": reference_frame0_ms,
+           "map_iters": got["map_iters"], "wrong": wrong}
+    emit(res)
+    if wrong:
+        raise AssertionError(f"sharded_precompile: {wrong}")
+    return res
+
+
 def color_sem_map(device, n_frames=10):
     """The color and semantic heads at bench widths on labelled data: the
     small sequence's first scan, each point with an intensity from its
@@ -2078,6 +2244,8 @@ def main():
                     help="also profile 5 steady frames of a fresh small run and of a "
                     "fresh 60-frame large run, the last 10 frames of stream_dynba's, "
                     "the last 5 of each option phase's and classic_mesh's final mesh")
+    ap.add_argument("--precompile-child", nargs=2, metavar=("MODE", "OUT"),
+                    help=argparse.SUPPRESS)  # one side of the precompile phase
     args = ap.parse_args()
 
     import torch
@@ -2089,6 +2257,9 @@ def main():
         print("chip_smoke: clid_slam_torch/ not found beside this script", file=sys.stderr)
         sys.exit(3)
     sys.path.insert(0, REPO)
+    if args.precompile_child:
+        precompile_child(*args.precompile_child)
+        return
     from clid_slam_torch import set_full_precision
     from clid_slam_torch.ops import _build
     from clid_slam_torch.pipeline import bench_cases
@@ -2101,12 +2272,10 @@ def main():
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    names = ("map_loop", "gather")
-    started = [_build.start_build(n) for n in names]  # one nvcc each, side by side
-    reports = [_build.finish_build(b) for b in started]
+    reports = _build.build_all()  # one nvcc each, side by side
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": [f"clid_slam_torch/csrc/{n}.cu" for n in names],
-          "ptxas": {n: ptxas_summary(r) for n, r in zip(names, reports)}})
+          "sources": [f"clid_slam_torch/csrc/{n}.cu" for n in reports],
+          "ptxas": {n: ptxas_summary(r) for n, r in reports.items()}})
 
     # the bench config first: 1 hidden layer of 64, no layer norm
     cases = [kernel_case(nh, ln, device, hidden) for nh in (1, 2) for hidden in (64, 32)
@@ -2115,6 +2284,7 @@ def main():
     for c in cases:
         emit(c)
     gather_table, probe_launches = gather_phase(device)
+    precompiled = precompile_phase()
 
     small, small_system = stream_phase("stream", False, 25, 10, device)
     large_seq = bench_cases.make_sequence(True, 200)
@@ -2126,6 +2296,8 @@ def main():
     small_seq = bench_cases.make_sequence(False, 25)
     stream_sh, stream_sh_system = stream_sharded_phase(device, small_seq)
     resumed_sh = sharded_checkpoint_resume(device, small_seq, stream_sh_system)
+    sharded_pre = sharded_precompile_phase(device, small_seq, stream_sh_system,
+                                           stream_sh["frame0_ms"])
     del stream_sh_system
     classic_sh = classic_sharded_phase(device, small_seq)
     fallback = stream_phase("stream_fallback", False, 12, 10, device, fused=False,
@@ -2165,7 +2337,8 @@ def main():
 
     def by_path(key):
         return {r["phase"]: r[key]
-                for r in (small, large, sharded, stream_sh, resumed_sh, classic_sh, fallback,
+                for r in (precompiled, small, large, sharded, stream_sh, resumed_sh,
+                          sharded_pre, classic_sh, fallback,
                           dynba, resumed, requery, *options,
                           labelled, classic, pgo, files) if key in r}
 

@@ -85,6 +85,21 @@ def pallas_ineligible_reasons(
     return reasons
 
 
+def pallas_ineligible_reasons_config(cfg):
+    """``pallas_ineligible_reasons`` of a Config (for tests and user
+    diagnostics)."""
+    return pallas_ineligible_reasons(
+        color_on=cfg.color_on,
+        sem_on=cfg.semantic_on,
+        weighted_first=cfg.weighted_first,
+        mlp_bf16=cfg.mlp_bf16,
+        mlp_leaky=cfg.mlp_leaky_relu,
+        loss_type=cfg.main_loss_type,
+        feature_dim=cfg.feature_dim,
+        n_hidden=cfg.geo_mlp_level,
+    )
+
+
 def make_sdf_loss(label, weight, bvalid, *, loss_type, sigma, loss_weight_on,
                   saturated_grad=True):
     """Main SDF loss: ``loss(pred)`` = masked mean over live rows.

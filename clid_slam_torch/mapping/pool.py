@@ -33,9 +33,30 @@ class ReplayPool:
     def tensors(self):
         return [getattr(self, f.name) for f in fields(self)]
 
+    # column views (cold paths; hot paths gather whole rows and split them)
     @property
     def coords(self) -> torch.Tensor:
         return self.data[..., _X : _X + 3]
+
+    @property
+    def sdf(self) -> torch.Tensor:
+        return self.data[..., _SDF]
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.data[..., _W]
+
+    @property
+    def ts(self) -> torch.Tensor:
+        return self.data[..., _TS].to(torch.int32)
+
+    @property
+    def sem(self) -> torch.Tensor:
+        return self.data[..., _SEM].to(torch.int32)
+
+    @property
+    def color(self) -> torch.Tensor:
+        return self.data[..., BASE_COLS:]
 
 
 def split_rows(rows: torch.Tensor):

@@ -29,6 +29,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-I", sysconfig.get_paths()["include"],
 ]
 
+SOURCES = ("map_loop", "gather")  # every csrc/<name>.cu
+
 _libs: Dict[str, object] = {}
 _lock = threading.Lock()
 
@@ -86,6 +88,14 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` into ``lib_path(name)`` unless it is
     there. Returns nvcc's -Xptxas -v report when it compiled."""
     return finish_build(start_build(name))
+
+
+def build_all() -> Dict[str, str]:
+    """Build every source that is not built yet, one nvcc each, side by
+    side. Returns each source's -Xptxas -v report ("" when nothing was
+    compiled)."""
+    started = [start_build(n) for n in SOURCES]
+    return {n: finish_build(b) for n, b in zip(SOURCES, started)}
 
 
 def load(name: str, declare) -> ctypes.CDLL:

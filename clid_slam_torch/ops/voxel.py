@@ -95,6 +95,25 @@ def voxel_down_sample_mask(
     return _winner_mask(h, key, mask, table_size)
 
 
+def voxel_down_sample_min_value_mask(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    resolution,
+    value: torch.Tensor,
+    table_size: int,
+) -> torch.Tensor:
+    """Keep-mask selecting, per voxel, the point with the minimum ``value``
+    (ties to the smaller index); invalid points never win nor survive."""
+    resolution = torch.as_tensor(resolution, dtype=torch.float32, device=points.device)
+    g = grid_coords(points, resolution)
+    vmax = torch.max(torch.where(mask, value, torch.full_like(value, -torch.inf)))
+    vmin = torch.min(torch.where(mask, value, torch.full_like(value, torch.inf)))
+    unit = (value - vmin) / torch.clamp(vmax - vmin, min=1e-12)
+    key = _packed_score_key(unit, mask)
+    h = voxel_hash(g, table_size)
+    return _winner_mask(h, key, mask, table_size)
+
+
 def neighbor_hash_soa(
     points: torch.Tensor,  # [N,3]
     nb_offs: torch.Tensor,  # [K,3] int

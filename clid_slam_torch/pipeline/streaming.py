@@ -6,8 +6,9 @@ label map, replay pool, decoder) lives on the device in ``StreamState``.
 One frame = IMU propagation + iterated update (candidate-cached, or
 re-querying the map each iteration with ``track_cached=False``) + the
 dynamic filter (``dynamic_filter_on``, tracked frames) + map prep +
-adaptive iteration count + mapping, with the host uploading the scan and
-the IMU window once. Tracked frames map with the fused kernel
+adaptive iteration count + mapping, with the host uploading the scan, the
+IMU window and the frame's scalars as one buffer (``pack_frame_buffers``,
+``pack_adapter``). Tracked frames map with the fused kernel
 (``ops/map_loop.py``) or, where the config is ineligible for it, with the
 mapper's autograd loop; frame 0 runs the general multi-batch body. After
 the frame step, with ``ba_freq_frame > 0`` a sliding-window bundle
@@ -15,6 +16,9 @@ adjustment refines the last ``ba_frame`` poses and the map's features, and
 with ``prune_map_on`` the map is pruned and rehashed every
 ``prune_freq_frame`` frames. ``save_checkpoint``/``load_checkpoint`` write
 and read the whole state (the JAX package's file, plus the generator).
+``precompile()`` runs every frame-step variant once on a throwaway clone
+before frame 0, so that kernel builds and other first-use costs stay out
+of the loop.
 Frames come from in-memory arrays or, with ``points=None``, from the
 config's directory of scans and IMU files (``self.dataset``, a
 ``SLAMDataset`` with no host filter); ``finalize`` writes the pose files
@@ -41,7 +45,7 @@ from __future__ import annotations
 import functools
 import os
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, is_dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -59,6 +63,7 @@ from ..models import decoder as dec
 from ..models import local_map as lm
 from ..models import neural_map as nm
 from ..odometry import iekf
+from ..ops import _build
 from ..ops.encoding import make_encoder
 from ..ops.scatter import compact_indices
 from ..ops.voxel import neighbor_offsets, voxel_down_sample_mask
@@ -103,6 +108,89 @@ class StreamState:
             *self.color_mlp.tensors(), *self.sem_mlp.tensors(), self.key, self.losses,
             self.track_iters,
         ]
+
+
+def clone_state(state):
+    """A deep copy of ``state`` (a ``StreamState`` or any of its parts):
+    every tensor copied, and a generator replaced by a new one on its
+    device in the same state, so that work on the copy moves neither the
+    original's tensors nor its draws."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, torch.Generator):
+        gen = torch.Generator(device=state.device)
+        gen.set_state(state.get_state())
+        return gen
+    if isinstance(state, list):
+        return [clone_state(x) for x in state]
+    if is_dataclass(state):
+        return replace(state, **{f.name: clone_state(getattr(state, f.name))
+                                 for f in fields(state)})
+    return state
+
+
+def pack_adapter(step, p_cap: int, imu_max_rows: int):
+    """Wrap a frame step (``make_frame_step``'s call) into the one-buffer
+    convention ``packed(state, frame_pack, draws=None)``, ``frame_pack``
+    the host buffer of ``pack_frame_buffers``: the scan block [p_cap,5]
+    (x, y, z, mask, point_ts), then the aux block [imu_max_rows+1,7] whose
+    first rows are the IMU rows (dt, acc, gyro) and whose last row carries
+    the frame scalars (frame_id, imu_count, crop_max_range, iters_base,
+    mlp_lr_scale, allow_restart, 0). The buffer goes to the state's device
+    in one copy and the step gets views of it; the scalars are read from
+    the host buffer, so they cost no read from the device."""
+    scan_n = p_cap * 5
+
+    def packed(state: StreamState, frame_pack: np.ndarray, draws: Optional[dict] = None):
+        host = np.asarray(frame_pack, np.float32)
+        dev = state.rot.device
+        buf = torch.from_numpy(host).to(dev)
+        scan = buf[:scan_n].reshape(p_cap, 5)
+        aux = buf[scan_n:].reshape(imu_max_rows + 1, 7)
+        s = host[scan_n:].reshape(imu_max_rows + 1, 7)[-1]
+        return step(
+            state, int(s[0]), scan[:, :3], scan[:, 3] > 0.5, scan[:, 4], aux[:-1], int(s[1]),
+            float(s[2]), int(s[3]), float(s[4]), bool(s[5] > 0.5), draws,
+        )
+
+    return packed
+
+
+def pack_frame_buffers(
+    p_cap: int,
+    imu_max_rows: int,
+    points,  # [n,3] np
+    point_ts,  # [n] np or None
+    imu_window,  # [k,7] np or None
+    frame_id: int,
+    crop_max_range: float,
+    iters_base: int,
+    mlp_lr_scale: float,
+    allow_restart: bool,
+) -> np.ndarray:
+    """The host buffer of ``pack_adapter``'s convention (the JAX package's
+    layout): the first ``p_cap`` points and ``imu_max_rows`` IMU rows."""
+    n = min(points.shape[0], p_cap)
+    pack = np.zeros(p_cap * 5 + (imu_max_rows + 1) * 7, np.float32)
+    scan = pack[: p_cap * 5].reshape(p_cap, 5)
+    aux = pack[p_cap * 5 :].reshape(imu_max_rows + 1, 7)
+    scan[:n, :3] = points[:n, :3]
+    scan[:n, 3] = 1.0
+    if point_ts is not None:
+        scan[:n, 4] = np.asarray(point_ts, np.float32).reshape(-1)[:n]
+    k = 0
+    if imu_window is not None and len(imu_window):
+        k = min(len(imu_window), imu_max_rows)
+        aux[:k] = imu_window[:k]
+    aux[-1, :6] = (
+        float(frame_id),
+        float(k),
+        float(crop_max_range),
+        float(iters_base),
+        float(mlp_lr_scale),
+        1.0 if allow_restart else 0.0,
+    )
+    return pack
 
 
 def _orthonormalize(R):
@@ -601,6 +689,36 @@ class StreamingSlam:
     def neural_point_count(self) -> int:
         return int(self.state.map_state.count)
 
+    def precompile(self):
+        """Run every frame-step variant (track on/off x pool filter on/off)
+        once before frame 0, and the prune when ``prune_map_on``, each on a
+        throwaway clone of the state, so that the one-time costs (the hand
+        kernels' builds, the lazy loads of CUDA modules and library
+        handles, a process group's first collectives) land here and not
+        inside the odometry loop. The frame is the JAX package's: an empty
+        scan, no IMU rows, frame 1, ``max_range``, ``iters``, learning-rate
+        scale 1, no restart. The state, its generator and the host records
+        stay as they were; the kernels' launch counts do count these
+        launches. On the card the kernels not built yet build first, side
+        by side."""
+        cfg = self.cfg
+        if self.device.type == "cuda":
+            _build.build_all()
+        pack = pack_frame_buffers(
+            cfg.max_scan_points, self.imu_max_rows,
+            np.zeros((0, 3), np.float32), None, None,
+            1, cfg.max_range, cfg.iters, 1.0, False,
+        )
+        for step in self.steps.values():
+            packed = pack_adapter(step, cfg.max_scan_points, self.imu_max_rows)
+            packed(clone_state(self.state), pack)
+        if cfg.prune_map_on:
+            nm.prune_and_rehash(
+                clone_state(self.state.map_state), cfg.max_prune_certainty,
+                self.state.travel_dist, 0, cfg.diff_travel_dist_local, cfg.voxel_size_m,
+            )
+        self.block()
+
     def seed_pose(self, rot: np.ndarray, pos: np.ndarray, vel=None):
         """Anchor the initial pose (and optionally velocity) before frame 0."""
         dev = self.device
@@ -632,7 +750,7 @@ class StreamingSlam:
         ``points=None``, the scan and IMU window of ``frame_id`` read from
         the config's directories. ``draws`` injects the frame's random
         numbers (see make_frame_step)."""
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         d = self.dataset
         if points is None:
             d.read_frame(frame_id)
@@ -650,36 +768,22 @@ class StreamingSlam:
             sel.sort()
             points = points[sel]
             point_ts = point_ts[sel] if point_ts is not None else None
-            n = p_cap
-        k = 0
-        imu = np.zeros((self.imu_max_rows, 7), np.float32)
-        if imu_window is not None and len(imu_window):
-            if len(imu_window) > self.imu_max_rows:
-                warnings.warn(
-                    f"frame {frame_id}: IMU window has {len(imu_window)} rows, "
-                    f"truncating to imu_max_rows={self.imu_max_rows}",
-                    RuntimeWarning,
-                )
-            k = min(len(imu_window), self.imu_max_rows)
-            imu[:k] = imu_window[:k]
-        scan = np.zeros((p_cap, 5), np.float32)
-        scan[:n, :3] = points
-        scan[:n, 3] = 1.0
-        if cfg.deskew and point_ts is not None:
-            scan[:n, 4] = np.asarray(point_ts, np.float32).reshape(-1)[:n]
-        scan_d = torch.from_numpy(scan).to(dev)
-        imu_d = torch.from_numpy(imu).to(dev)
-
+        if imu_window is not None and len(imu_window) > self.imu_max_rows:
+            warnings.warn(
+                f"frame {frame_id}: IMU window has {len(imu_window)} rows, "
+                f"truncating to imu_max_rows={self.imu_max_rows}",
+                RuntimeWarning,
+            )
         track = cfg.track_on and frame_id > 0
         filter_now = (frame_id + 1) % cfg.pool_filter_freq == 0
-        step = self.steps[(track, filter_now)]
         iters_base = cfg.iters * cfg.init_iter_ratio if frame_id == 0 else cfg.iters
         mlp_scale = 0.0 if frame_id >= cfg.freeze_after_frame else 1.0
-        self.state, dropped, filtered = step(
-            self.state, frame_id, scan_d[:, :3], scan_d[:, 3] > 0.5, scan_d[:, 4],
-            imu_d, k, crop_max_range, iters_base, mlp_scale,
-            frame_id > cfg.freeze_after_frame, draws,
+        pack = pack_frame_buffers(
+            p_cap, self.imu_max_rows, points, point_ts if cfg.deskew else None, imu_window,
+            frame_id, crop_max_range, iters_base, mlp_scale, frame_id > cfg.freeze_after_frame,
         )
+        step = pack_adapter(self.steps[(track, filter_now)], p_cap, self.imu_max_rows)
+        self.state, dropped, filtered = step(self.state, pack, draws)
         self.insert_dropped = self.insert_dropped + dropped
         if filtered is not None:
             self.filter_log.append((frame_id, filtered[0], filtered[1]))

@@ -2,9 +2,9 @@
 clid_slam_tpu/pipeline/streaming_sharded.py).
 
 ``StreamingSlam``'s device-resident state and host surface (``seed_pose``,
-``process_frame``, ``block``, ``sync``, checkpoints) with the map split
-over the ranks of a ``torch.distributed`` process group, one shard a rank
-(``parallel/spatial.py``). Only the map carries a shard; the filter, the
+``precompile``, ``process_frame``, ``block``, ``sync``, checkpoints) with
+the map split over the ranks of a ``torch.distributed`` process group, one
+shard a rank (``parallel/spatial.py``). Only the map carries a shard; the filter, the
 odometry bookkeeping, the local label map, the sampler, the replay pool and
 the decoder are replicated, so every rank draws the same numbers in the
 same order from its generator and holds the same values.
@@ -22,11 +22,11 @@ the tracker's exit flag an iteration and the mapping body's step count.
 The JAX package's BA and prune cadences fail on a sharded map, so the
 constructor refuses ``ba_freq_frame > 0`` and ``prune_map_on``; its
 sharded step has no dynamic filter, so ``dynamic_filter_on`` is not run
-here either (a warning says so). ``sync()`` and ``neural_point_count()``
-are collectives, and ``save_checkpoint`` is one too: every rank calls them
-together. A checkpoint is one npz in the JAX package's sharded layout (map
-leaves stacked ``[S, ...]``), written by rank 0; on load each rank takes
-its own shard.
+here either (a warning says so). ``precompile()``, ``sync()`` and
+``neural_point_count()`` are collectives, and ``save_checkpoint`` is one
+too: every rank calls them together. A checkpoint is one npz in the JAX
+package's sharded layout (map leaves stacked ``[S, ...]``), written by
+rank 0; on load each rank takes its own shard.
 """
 
 from __future__ import annotations
@@ -187,6 +187,14 @@ class StreamingShardedSlam(stream.StreamingSlam):
 
     def _init_map_state(self):
         return init_shard(self.cfg, self.mesh, self.device)
+
+    def precompile(self):
+        """``StreamingSlam.precompile`` over the sharded step (a collective:
+        every rank calls it and runs the variants in the same order); the
+        variants' mapping steps are kept out of ``map_log``."""
+        n = len(self.map_log)
+        super().precompile()
+        del self.map_log[n:]
 
     def neural_point_count(self) -> int:
         """Live points over every shard (a collective)."""

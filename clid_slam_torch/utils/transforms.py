@@ -14,6 +14,11 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return points @ T[:3, :3].T + T[:3, 3]
 
 
+def transform_points_batch(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Apply per-point transforms T[N,4,4] to points [N,3]."""
+    return torch.einsum("nij,nj->ni", T[:, :3, :3], points) + T[:, :3, 3]
+
+
 def deskew(
     points: torch.Tensor,
     ts: torch.Tensor,

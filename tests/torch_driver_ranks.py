@@ -62,6 +62,45 @@ def stream_run_case(mesh, inp):
     return res
 
 
+def _leaves_digest(st) -> str:
+    return digest([x.get_state() if isinstance(x, torch.Generator) else x for x in st.leaves()])
+
+
+def recorded(fn, calls, key):
+    """``fn`` appending ``key`` to ``calls`` at each call."""
+    def call(*args, **kw):
+        calls.append(key)
+        return fn(*args, **kw)
+
+    return call
+
+
+def stream_precompile_case(mesh, inp):
+    """``StreamingShardedSlam`` over ``inp["n"]`` frames after
+    ``precompile()`` ("warm") and without it ("cold"); whether precompile
+    left the state and ``map_log`` as they were."""
+    cfg, n = inp["cfg"], inp["n"]
+    res = {}
+    for name in ("warm", "cold"):
+        s = _stream(cfg, inp, mesh)
+        if name == "warm":
+            before = _leaves_digest(s.state)
+            ran, steps = [], s.steps
+            s.steps = {k: recorded(f, ran, k) for k, f in steps.items()}
+            s.precompile()
+            s.steps = steps
+            res["precompiled_variants"] = ran
+            res["unchanged_by_precompile"] = (_leaves_digest(s.state) == before
+                                              and s.map_log == [])
+        for i in range(n):
+            s.process_frame(i, inp["scans"][i], inp["imus"][i])
+        out = s.sync()
+        res[name] = dict(odom_poses=out["odom_poses"], losses=out["losses"],
+                         track_iters=out["track_iters"], map_iters=out["map_iters"],
+                         state=_leaves_digest(s.state), replicated=_replicated(s.state))
+    return res
+
+
 def stream_from_jax_case(mesh, inp):
     """A JAX sharded checkpoint loaded and written back as JAX's leaves, and
     one frame from JAX's state with JAX's draws."""
