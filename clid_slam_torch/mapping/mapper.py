@@ -38,6 +38,7 @@ from ..mapping.pool import ReplayPool, sample_batch_indices, split_rows
 from ..ops.gather import gather_lanes, gather_rows, gather_rows_nd
 from ..ops.map_loop import map_loop
 from ..ops.voxel import grid_coords, voxel_hash
+from ..utils import observability as obs
 
 SUPPORTED_LOSS_TYPES = ("bce", "zhong", "sdf_l1", "sdf_l2")
 
@@ -507,18 +508,22 @@ def make_mapping_fn(
         dev = pool.data.device
         cap = nm.map_capacity(map_state)
         draws = batch_draws[0] if batch_draws is not None else None
-        c = build_cache(map_state, pool, travel_dist, cur_ts, window, generator, draws)
-        works0 = [gather_rows(slab, c.src_rows) for slab in slabs_of(map_state)]  # [W,F]
-        n_iters = torch.as_tensor(iter_count, device=dev).to(torch.int32)
-        inner_n = torch.clamp(n_iters, max=R)
-        mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
+        with obs.span("frame.map.cache"):
+            c = build_cache(map_state, pool, travel_dist, cur_ts, window, generator, draws)
+            works0 = [gather_rows(slab, c.src_rows) for slab in slabs_of(map_state)]  # [W,F]
+            n_iters = torch.as_tensor(iter_count, device=dev).to(torch.int32)
+            inner_n = torch.clamp(n_iters, max=R)
+            mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
+            if dup_independent:
+                f0s = [gather_rows_nd(w, c.local_idx) for w in works0]
         if not dup_independent:
             # the autograd loop reads its step count on the host, once
+            n_steps = int(inner_n)
+            obs.count("map.steps", n_steps)
             rows, mlps_new, losses = autograd_loop(
-                make_loss_fn(c), works0, mlps, int(inner_n), mlp_lr
+                make_loss_fn(c), works0, mlps, n_steps, mlp_lr
             )
         else:
-            f0s = [gather_rows_nd(w, c.local_idx) for w in works0]
             reasons = pallas_ineligible_reasons(
                 color_on=color_on, sem_on=sem_on, weighted_first=weighted_first,
                 mlp_bf16=mlp_bf16, mlp_leaky=mlp_leaky, loss_type=loss_type,
@@ -532,10 +537,13 @@ def make_mapping_fn(
                     stacklevel=3,
                 )
             if reasons or not use_pallas:
+                n_steps = int(inner_n)
+                obs.count("map.steps", n_steps)
                 f_new, mlps_new, losses = autograd_loop(
-                    make_loss_fn(c, expanded=True), f0s, mlps, int(inner_n), mlp_lr
+                    make_loss_fn(c, expanded=True), f0s, mlps, n_steps, mlp_lr
                 )
             else:
+                obs.count("map.steps", inner_n)  # read when the counters are
                 wsel = torch.abs(c.weight) * c.bvalid if loss_weight_on else c.bvalid
                 f_geo, mlp_new, losses = map_loop(
                     f0s[0], c.w0.contiguous(), c.encw0.contiguous(),
@@ -569,6 +577,7 @@ def make_mapping_fn(
         dev = pool.data.device
         cap = nm.map_capacity(map_state)
         n_iters = int(iter_count)  # host read: sizes the outer loop
+        obs.count("map.steps", n_iters)
         n_outer = (n_iters + R - 1) // R
         slabs = [slab.clone() for slab in slabs_of(map_state)]
         m_slabs = [torch.zeros_like(slab) for slab in slabs]

@@ -15,6 +15,7 @@ from ..models import neural_map as nm
 from ..mapping import pool as pl
 from ..mapping.mapper import make_novelty_fn
 from ..mapping.sampler import sample_rays
+from ..utils import observability as obs
 from ..utils.transforms import transform_points
 
 
@@ -89,63 +90,67 @@ def make_prep_fn(
         origin = pose[:3, 3]
         world_pts = transform_points(points, pose)
         if not pin_mode:
-            local_map = lm.update_local_map(
-                local_map, origin, world_pts, mask, local_resolution,
-                local_map_size, crop_now=filter_pool_now,
+            with obs.span("frame.prep.local_map"):
+                local_map = lm.update_local_map(
+                    local_map, origin, world_pts, mask, local_resolution,
+                    local_map_size, crop_now=filter_pool_now,
+                )
+        with obs.span("frame.prep.sample"):
+            batch = sample_rays(
+                points, mask, pose, local_map, local_resolution,
+                surface_sample_range_m=surface_sample_range_m,
+                surface_sample_n=surface_sample_n,
+                free_front_n=free_front_n,
+                free_behind_n=free_behind_n,
+                free_sample_begin_ratio=free_sample_begin_ratio,
+                free_sample_end_dist_m=free_sample_end_dist_m,
+                max_range=max_range,
+                dist_weight_on=dist_weight_on,
+                dist_weight_scale=dist_weight_scale,
+                pin_mode=pin_mode,
+                behind_dropoff_on=behind_dropoff_on,
+                incidence_label_on=incidence_label_on,
+                incidence_min_factor=incidence_min_factor,
+                incidence_degenerate_factor=incidence_degenerate_factor,
+                free_behind_weight=free_behind_weight,
+                generator=generator,
+                draws=sample_draws,
+                colors=colors,
+                sem_labels=sem_labels,
             )
-        batch = sample_rays(
-            points, mask, pose, local_map, local_resolution,
-            surface_sample_range_m=surface_sample_range_m,
-            surface_sample_n=surface_sample_n,
-            free_front_n=free_front_n,
-            free_behind_n=free_behind_n,
-            free_sample_begin_ratio=free_sample_begin_ratio,
-            free_sample_end_dist_m=free_sample_end_dist_m,
-            max_range=max_range,
-            dist_weight_on=dist_weight_on,
-            dist_weight_scale=dist_weight_scale,
-            pin_mode=pin_mode,
-            behind_dropoff_on=behind_dropoff_on,
-            incidence_label_on=incidence_label_on,
-            incidence_min_factor=incidence_min_factor,
-            incidence_degenerate_factor=incidence_degenerate_factor,
-            free_behind_weight=free_behind_weight,
-            generator=generator,
-            draws=sample_draws,
-            colors=colors,
-            sem_labels=sem_labels,
-        )
-        coords_global = transform_points(batch.coords, pose)
+            coords_global = transform_points(batch.coords, pose)
 
-        if from_sample_points:
-            upd_sel = batch.mask & (
-                torch.abs(batch.sdf_label) < surface_sample_range_m * map_surface_ratio
+        with obs.span("frame.prep.insert"):
+            if from_sample_points:
+                upd_sel = batch.mask & (
+                    torch.abs(batch.sdf_label) < surface_sample_range_m * map_surface_ratio
+                )
+                upd_pts = coords_global
+                if map_surface_ratio <= 2.0:
+                    # only the endpoint + near-surface block can pass the gate
+                    surf_rows = (1 + surface_sample_n) * points.shape[0]
+                    upd_sel = upd_sel[:surf_rows]
+                    upd_pts = upd_pts[:surf_rows]
+            else:
+                upd_sel = mask
+                upd_pts = world_pts
+            map_state, ins = nm.insert_points(
+                map_state, upd_pts, upd_sel, resolution, travel_dist, frame_id,
+                diff_travel_dist_local,
             )
-            upd_pts = coords_global
-            if map_surface_ratio <= 2.0:
-                # only the endpoint + near-surface block can pass the gate
-                surf_rows = (1 + surface_sample_n) * points.shape[0]
-                upd_sel = upd_sel[:surf_rows]
-                upd_pts = upd_pts[:surf_rows]
-        else:
-            upd_sel = mask
-            upd_pts = world_pts
-        map_state, ins = nm.insert_points(
-            map_state, upd_pts, upd_sel, resolution, travel_dist, frame_id,
-            diff_travel_dist_local,
-        )
-        if filter_pool_now:
-            pool = pl.filter_pool(pool, origin, window_radius)
-        if novelty_on:
-            is_new = novelty(map_state, coords_global, batch.sdf_label, batch.mask)
-        else:
-            is_new = torch.zeros_like(batch.mask)
-        pool = pl.append_samples(
-            pool, coords_global, batch.sdf_label, batch.weight, batch.mask,
-            frame_id, is_new, uniform=append_uniform, generator=generator,
-            color=batch.color if colors is not None else None,
-            sem=batch.sem if sem_labels is not None else None,
-        )
+        with obs.span("frame.prep.pool"):
+            if filter_pool_now:
+                pool = pl.filter_pool(pool, origin, window_radius)
+            if novelty_on:
+                is_new = novelty(map_state, coords_global, batch.sdf_label, batch.mask)
+            else:
+                is_new = torch.zeros_like(batch.mask)
+            pool = pl.append_samples(
+                pool, coords_global, batch.sdf_label, batch.weight, batch.mask,
+                frame_id, is_new, uniform=append_uniform, generator=generator,
+                color=batch.color if colors is not None else None,
+                sem=batch.sem if sem_labels is not None else None,
+            )
         return PrepResult(
             map_state,
             local_map,

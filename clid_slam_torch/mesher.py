@@ -28,11 +28,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .models import decoder as dec
 from .models import neural_map as nm
 from .ops.marching import marching_tetrahedra
+from .utils import observability as obs
 
 
 class Mesher:
@@ -68,7 +68,7 @@ class Mesher:
         self.weighted_first = weighted_first
 
     def _query(self, map_state, pts):
-        with record_function("mesh.query"):
+        with obs.span("mesh.query"):
             return nm.query_feature(
                 map_state, pts, self.offs.to(pts.device), self.resolution,
                 self.max_valid_dist2, self.knn_k, **self.query_kw,
@@ -87,7 +87,7 @@ class Mesher:
         """(sdf [N], ok [N]): ok where ``valid_in`` and the point has at
         least ``mesh_min_nn`` neighbours."""
         q = self._query(map_state, pts)
-        with record_function("mesh.decode"):
+        with obs.span("mesh.decode"):
             sdf = self._weighted(dec.sdf(mlp, q.feature, self.sdf_scale, **self.dec_kw), q)
         return sdf, valid_in & (q.nn_count >= self.mesh_min_nn)
 
@@ -96,7 +96,7 @@ class Mesher:
         """Vertex color regression (utils/mesher.py:425-443 semantics): the
         same kNN query, the color-feature slab, the sigmoid color head."""
         q = self._query(map_state, pts)
-        with record_function("mesh.decode"):
+        with obs.span("mesh.decode"):
             cfeat = nm.query_color_feature(map_state, q, self.feature_dim)
             color = self._weighted(dec.regress_color(color_mlp, cfeat, **self.dec_kw), q)
         return color, valid_in & (q.nn_count >= self.mesh_min_nn)
@@ -105,7 +105,7 @@ class Mesher:
     def sem_chunk(self, map_state, sem_mlp, pts, valid_in):
         """Vertex semantic argmax (utils/mesher.py:401-423 semantics)."""
         q = self._query(map_state, pts)
-        with record_function("mesh.decode"):
+        with obs.span("mesh.decode"):
             logp = self._weighted(dec.sem_label_prob(sem_mlp, q.feature, **self.dec_kw), q)
             labels = torch.argmax(logp, dim=-1).to(torch.int32)
         return labels, valid_in & (q.nn_count >= self.mesh_min_nn)
@@ -122,7 +122,7 @@ class Mesher:
         M = (cd-1)³ * 12."""
         cd = self.chunk_dim
         sdf, ok = self.query_chunk(map_state, mlp, self.chunk_points(origin, mc_res), valid_in)
-        with record_function("mesh.marching"):
+        with obs.span("mesh.marching"):
             return marching_tetrahedra(sdf, ok, origin, mc_res, (cd, cd, cd))
 
     # ------------------------------------------------------------- meshing
@@ -173,7 +173,7 @@ class Mesher:
             origin = aabb_min + np.asarray(cid, np.float64) * step
             origin_d = torch.as_tensor(origin.astype(np.float32), device=dev)
             tris, ok = self.mesh_chunk(map_state, mlp, origin_d, mc_res, valid_in)
-            with record_function("mesh.compaction"):
+            with obs.span("mesh.compaction"):
                 tri_np = tris[ok].cpu().numpy()
             if skip_top_voxel > 0:
                 tri_np = tri_np[(tri_np[..., 2] <= aabb_max[2]).all(axis=-1)]

@@ -35,6 +35,7 @@ from ..models import decoder as dec
 from ..models import neural_map as nm
 from ..ops.gather import gather_lanes
 from ..utils import lie
+from ..utils import observability as obs
 
 G_M_S2 = 9.81
 
@@ -370,40 +371,45 @@ def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, *, max_iteration, ter
     prev_step = torch.full((), float("inf"), device=dev)
     i = 0
     while i < max_iteration:
-        drot = lie.so3_log(rot0.T @ rot)
-        dx_new = torch.cat([drot, pos - pos0, rest - rest0])
-        S6, b6, n_valid = h_reduce(rot, pos)
-        S18 = torch.zeros((18, 18), device=dev)
-        S18[:6, :6] = S6
-        b18 = torch.zeros(18, device=dev)
-        b18[:6] = b6
-        sol = _equilibrated_solve(S18 + P_inv, torch.cat([b18[:, None], S18, I18], 1))
-        KH = sol[:, 1:19]
-        A_inv = sol[:, 19:]
-        dx = -sol[:, 0] + (KH - I18) @ dx_new
-        # trust region: steps beyond the frame-level failure bound are
-        # solver blow-ups, never real motion
-        tran_raw = torch.linalg.norm(dx[3:6])
-        dx = dx * torch.clamp(10.0 / torch.clamp(tran_raw, min=1e-12), max=1.0)
-        rot = rot @ lie.so3_exp(dx[0:3])
-        pos = pos + dx[3:6]
-        rest = rest + dx[6:18]
-        tran_m = torch.linalg.norm(dx[3:6])
-        rot_rad = torch.linalg.norm(dx[0:3])
-        converged = (
-            (rot_rad < term_rad) & (tran_m < term_thre_m)
-            & torch.all(torch.abs(dx[6:]) < eps)
-        )
-        step = rot_rad + tran_m
-        stalled = (i >= stagnation_iter) & (step >= prev_step)
-        low_valid = (n_valid / n_total < min_valid_ratio) & (i == max_iteration - 1)
-        ok = ~low_valid
-        prev_step = step
-        i += 1
-        if bool(converged | low_valid | stalled):  # one host read per iteration
-            break
+        with obs.span("frame.track.iter"):
+            drot = lie.so3_log(rot0.T @ rot)
+            dx_new = torch.cat([drot, pos - pos0, rest - rest0])
+            S6, b6, n_valid = h_reduce(rot, pos)
+            S18 = torch.zeros((18, 18), device=dev)
+            S18[:6, :6] = S6
+            b18 = torch.zeros(18, device=dev)
+            b18[:6] = b6
+            sol = _equilibrated_solve(S18 + P_inv, torch.cat([b18[:, None], S18, I18], 1))
+            KH = sol[:, 1:19]
+            A_inv = sol[:, 19:]
+            dx = -sol[:, 0] + (KH - I18) @ dx_new
+            # trust region: steps beyond the frame-level failure bound are
+            # solver blow-ups, never real motion
+            tran_raw = torch.linalg.norm(dx[3:6])
+            dx = dx * torch.clamp(10.0 / torch.clamp(tran_raw, min=1e-12), max=1.0)
+            rot = rot @ lie.so3_exp(dx[0:3])
+            pos = pos + dx[3:6]
+            rest = rest + dx[6:18]
+            tran_m = torch.linalg.norm(dx[3:6])
+            rot_rad = torch.linalg.norm(dx[0:3])
+            converged = (
+                (rot_rad < term_rad) & (tran_m < term_thre_m)
+                & torch.all(torch.abs(dx[6:]) < eps)
+            )
+            step = rot_rad + tran_m
+            stalled = (i >= stagnation_iter) & (step >= prev_step)
+            low_valid = (n_valid / n_total < min_valid_ratio) & (i == max_iteration - 1)
+            ok = ~low_valid
+            prev_step = step
+            i += 1
+            if bool(converged | low_valid | stalled):  # one host read per iteration
+                break
+    obs.count("track.iters", i)
     ok = ok & ~((n_valid / n_total < min_valid_ratio) & (i == max_iteration))
-    P_new = 0.5 * (A_inv + A_inv.T)
+    # row-major, as a host copy or a checkpoint of the state holds it: the sum
+    # comes out transposed, and the next frame's products round otherwise in
+    # the two layouts
+    P_new = (0.5 * (A_inv + A_inv.T)).contiguous()
     return rot, pos, rest, P_new, ok, torch.tensor(i, dtype=torch.int32, device=dev)
 
 
@@ -531,7 +537,9 @@ def make_cached_update_fn(
 
     def body(map_state, mlp, points_imu, mask, rot0, pos0, rest0, P,
              travel_dist, cur_ts, window):
-        cands = build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts, window)
+        with obs.span("frame.track.candidates"):
+            cands = build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts,
+                                     window)
         return dense_update(cands, mlp, points_imu, mask, rot0, pos0, rest0, P)
 
     # the sharded tracker builds the candidates collectively and runs the

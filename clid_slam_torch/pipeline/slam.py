@@ -37,7 +37,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import Config
 from ..device import resolve_device
@@ -54,6 +53,7 @@ from ..odometry import iekf
 from ..ops.encoding import make_encoder
 from ..ops.voxel import neighbor_offsets
 from ..utils import io
+from ..utils import observability as obs
 from ..utils.transforms import transform_points
 from .dataset import SLAMDataset
 from .streaming import _max_valid_dist2, mapping_kwargs, prep_kwargs
@@ -336,7 +336,7 @@ class SlamSystem:
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
         x = self.tracker.x
         rest0 = np.concatenate([x.vel, x.bg, x.ba, x.grav])
-        with record_function("frame.track"):
+        with obs.span("frame.track", str(frame_id)):
             rot, pos, rest, P, ok, n_iter = self.update_iterated_dev(
                 self.map_state, self.mlp, d.cur_source_points, d.cur_source_mask,
                 f32(x.rot), f32(x.pos), f32(rest0), f32(self.tracker.P),
@@ -374,7 +374,7 @@ class SlamSystem:
         if prep is None:
             prep = prp.make_prep_fn(filter_pool_now=filter_now, **prep_kwargs(cfg))
             self._prep_fns[filter_now] = prep
-        with record_function("frame.prep"):
+        with obs.span("frame.prep", str(frame_id)):
             res = prep(
                 self.map_state, self.local_map, self.pool, d.cur_points, d.cur_mask,
                 torch.as_tensor(pose, dtype=torch.float32, device=self.device),
@@ -417,7 +417,7 @@ class SlamSystem:
         cur_iters = max(1, cur_iters + self.adaptive_iter_offset)
         mlp_scale = 0.0 if frame_id >= cfg.freeze_after_frame else 1.0
         fn = self.mapping_fn if frame_id == 0 else self.mapping_fn_fast
-        with record_function("frame.map"):
+        with obs.span("frame.map", str(frame_id)):
             self.map_state, self.mlp, self.color_mlp, self.sem_mlp, losses = fn(
                 self.map_state, self.mlp, self.color_mlp, self.sem_mlp, self.pool,
                 self.travel_dist_dev, frame_id, cfg.diff_travel_dist_local, cur_iters,
@@ -511,7 +511,7 @@ class SlamSystem:
             if self._dyn_filter is not None and frame_id > 0:
                 # drop measurements landing in confidently observed free
                 # space (slam.py:170-176 passes filter_dynamic for frame>0)
-                with record_function("frame.filter"):
+                with obs.span("frame.filter", str(frame_id)):
                     pose_d = torch.as_tensor(d.cur_pose_ref, dtype=torch.float32, device=self.device)
                     world = transform_points(d.cur_points, pose_d)
                     d.cur_mask = self._dyn_filter(
@@ -529,7 +529,7 @@ class SlamSystem:
             and frame_id >= cfg.ba_frame
             and (frame_id + 1) % cfg.ba_freq_frame == 0
         ):
-            with record_function("ba"):
+            with obs.span("ba", str(frame_id)):
                 self._bundle_adjust(frame_id)
         self._sync()
         t4 = time.perf_counter()

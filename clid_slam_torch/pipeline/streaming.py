@@ -32,12 +32,27 @@ labels stay 0 and -1.
 Host reads inside a frame: the iterated update reads its exit flag once
 per iteration, frame 0 reads its iteration count to size the outer
 mapping loop, and a tracked frame on the autograd loop reads its step
-count once. Everything else stays on the device until ``sync()``.
+count once. Everything else stays on the device until ``sync()``, but the
+host still waits on the device where a step copies a host scalar or
+constant to it, checks a linalg result or indexes with a device scalar:
+the ``syncs`` counter below finds each such wait.
 
-The tracking, filter, prep and mapping stages and the BA run under
-``torch.profiler`` ranges (``frame.track``, ``frame.filter``,
-``frame.prep``, ``frame.map``, ``ba``) so that a profile of the loop splits
-the frame by stage (``chip_smoke.py --profile``).
+While torch's profiler records, ``process_frame`` runs under spans and
+counters (``utils/observability.py``; no setting, and one flag check a
+span when nothing records). Its top-level ranges, in order and never
+nested in one another, each with the frame id as ``args``:
+``frame.ingest`` (the scan's read, the adaptive crop range, the subsample,
+the pack), ``frame.upload`` (the buffer's copy to the device),
+``frame.predict`` (the masks, the IMU propagation, the source points),
+``frame.track`` (the iterated update), ``frame.bookkeep`` (the pose, the
+stop and lose-track flags, the deskew), ``frame.filter``, ``frame.prep``,
+``frame.iters`` (the adaptive step count), ``frame.map`` and ``ba``; what
+lies between them is host work of well under a millisecond. Nested
+ranges: ``frame.track.candidates``, ``frame.track.iter`` (one an IESEKF
+iteration), ``frame.prep.local_map``, ``frame.prep.sample``,
+``frame.prep.insert``, ``frame.prep.pool`` and ``frame.map.cache``.
+Counters: ``frames``, ``track.iters``, ``map.steps`` and, on the card,
+``syncs`` with ``syncs.<top-level range>`` and ``syncs.unspanned``.
 """
 
 from __future__ import annotations
@@ -50,7 +65,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import Config
 from ..device import resolve_device
@@ -67,6 +81,7 @@ from ..ops import _build
 from ..ops.encoding import make_encoder
 from ..ops.scatter import compact_indices
 from ..ops.voxel import neighbor_offsets, voxel_down_sample_mask
+from ..utils import observability as obs
 from ..utils.transforms import adaptive_crop_range, crop_mask, deskew
 
 G_M_S2 = iekf.G_M_S2
@@ -143,13 +158,14 @@ def pack_adapter(step, p_cap: int, imu_max_rows: int):
 
     def packed(state: StreamState, frame_pack: np.ndarray, draws: Optional[dict] = None):
         host = np.asarray(frame_pack, np.float32)
-        dev = state.rot.device
-        buf = torch.from_numpy(host).to(dev)
-        scan = buf[:scan_n].reshape(p_cap, 5)
-        aux = buf[scan_n:].reshape(imu_max_rows + 1, 7)
         s = host[scan_n:].reshape(imu_max_rows + 1, 7)[-1]
+        with obs.span("frame.upload", str(int(s[0]))):
+            buf = torch.from_numpy(host).to(state.rot.device)
+            scan = buf[:scan_n].reshape(p_cap, 5)
+            aux = buf[scan_n:].reshape(imu_max_rows + 1, 7)
+            pmask = scan[:, 3] > 0.5
         return step(
-            state, int(s[0]), scan[:, :3], scan[:, 3] > 0.5, scan[:, 4], aux[:-1], int(s[1]),
+            state, int(s[0]), scan[:, :3], pmask, scan[:, 4], aux[:-1], int(s[1]),
             float(s[2]), int(s[3]), float(s[4]), bool(s[5] > 0.5), draws,
         )
 
@@ -441,54 +457,61 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             "append", "batches": see prep and mapper) in place of the
             state's generator."""
             draws = draws or {}
-            crop = torch.tensor(crop_max_range, dtype=torch.float32, device=points.device)
-            pmask = pmask & crop_mask(points, cfg.min_z, cfg.max_z, cfg.min_range, crop)
-            scale = crop / cfg.max_range
-            train_mask = voxel_down_sample_mask(
-                points, pmask, scale * cfg.vox_down_m, cfg.map_hash_size
-            )
-            rot, pos, rest, P = state.rot, state.pos, state.rest, state.P
-            odom_poses = state.odom_poses.clone()
-            travel_dist = state.travel_dist.clone()
-            lose_track, consec_lose = state.lose_track, state.consec_lose
-            stop_count, stop_status = state.stop_count, state.stop_status
-            failed = state.failed
-            track_iters = state.track_iters
+            fid = str(frame_id)
+            with obs.span("frame.predict", fid):
+                crop = torch.tensor(crop_max_range, dtype=torch.float32, device=points.device)
+                pmask = pmask & crop_mask(points, cfg.min_z, cfg.max_z, cfg.min_range, crop)
+                scale = crop / cfg.max_range
+                train_mask = voxel_down_sample_mask(
+                    points, pmask, scale * cfg.vox_down_m, cfg.map_hash_size
+                )
+                rot, pos, rest, P = state.rot, state.pos, state.rest, state.P
+                odom_poses = state.odom_poses.clone()
+                travel_dist = state.travel_dist.clone()
+                lose_track, consec_lose = state.lose_track, state.consec_lose
+                stop_count, stop_status = state.stop_count, state.stop_status
+                failed = state.failed
+                track_iters = state.track_iters
+                if track:
+                    rot, pos, rest, P = predict_imu(cfg, rot, pos, rest, P, imu_rows, imu_count)
+                    src_idx, smask = source_indices(cfg, points, train_mask, scale)
+                    src_pts = points[src_idx]
+                    if cfg.deskew:
+                        rel = torch.linalg.inv(state.last_pose) @ _pose(rot, pos)
+                        src_pts = deskew(src_pts, point_ts[src_idx], rel)
 
             if track:
-                rot, pos, rest, P = predict_imu(cfg, rot, pos, rest, P, imu_rows, imu_count)
-                src_idx, smask = source_indices(cfg, points, train_mask, scale)
-                src_pts = points[src_idx]
-                if cfg.deskew:
-                    rel = torch.linalg.inv(state.last_pose) @ _pose(rot, pos)
-                    src_pts = deskew(src_pts, point_ts[src_idx], rel)
-
-                with record_function("frame.track"):
+                with obs.span("frame.track", fid):
                     rot, pos, rest, P, ok, n_iter = update(
                         state.map_state, state.mlp, src_pts, smask,
                         rot, pos, rest, P, travel_dist, frame_id, window,
                     )
-                rot = _orthonormalize(rot)
-                track_iters = track_iters.clone()
-                track_iters[frame_id] = n_iter
-                pose = _pose(rot, pos)
-                (stop_count, stop_status, lose_track, consec_lose, failed, last_tran,
-                 tran_norm) = track_bookkeeping(cfg, state, pose, ok)
-                travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)] + tran_norm
-                odom_poses[frame_id] = pose
-                if cfg.deskew:
-                    full = deskew(points, point_ts, last_tran)
-                    points = torch.where(train_mask[:, None], full, points)
-            else:
-                pose = _pose(rot, pos)
-                odom_poses[frame_id] = pose
-                travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)]
+            with obs.span("frame.bookkeep", fid):
+                if track:
+                    rot = _orthonormalize(rot)
+                    track_iters = track_iters.clone()
+                    track_iters[frame_id] = n_iter
+                    pose = _pose(rot, pos)
+                    (stop_count, stop_status, lose_track, consec_lose, failed, last_tran,
+                     tran_norm) = track_bookkeeping(cfg, state, pose, ok)
+                    travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)] + tran_norm
+                    odom_poses[frame_id] = pose
+                    if cfg.deskew:
+                        full = deskew(points, point_ts, last_tran)
+                        points = torch.where(train_mask[:, None], full, points)
+                else:
+                    pose = _pose(rot, pos)
+                    odom_poses[frame_id] = pose
+                    travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)]
+                # map prep is gated by tracking validity (a lost or stopped
+                # frame must not corrupt the map)
+                valid_mapping = ~lose_track & ~stop_status
 
             # dynamic-object filter (slam.py:170-176: tracked frames only):
             # drop measurements landing in confidently observed free space
             filtered = None
             if dyn_filter is not None and track:
-                with record_function("frame.filter"):
+                with obs.span("frame.filter", fid):
                     world = points @ pose[:3, :3].T + pose[:3, 3]
                     before = torch.sum(train_mask.to(torch.int32))
                     train_mask = dyn_filter(
@@ -497,10 +520,7 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                     )
                     filtered = torch.stack([before, torch.sum(train_mask.to(torch.int32))])
 
-            # map prep, gated by tracking validity (a lost or stopped frame
-            # must not corrupt the map)
-            valid_mapping = ~lose_track & ~stop_status
-            with record_function("frame.prep"):
+            with obs.span("frame.prep", fid):
                 res = prep_body(
                     state.map_state, state.local_map, state.pool, points,
                     train_mask & valid_mapping, pose, travel_dist, frame_id, window,
@@ -508,11 +528,12 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                     append_uniform=draws.get("append"),
                 )
 
-            iters = adaptive_iters(cfg, iters_base, res.new_sample_count, res.cur_sample_count,
-                                   allow_restart, stop_status)
+            with obs.span("frame.iters", fid):
+                iters = adaptive_iters(cfg, iters_base, res.new_sample_count,
+                                       res.cur_sample_count, allow_restart, stop_status)
 
             map_fn = mapping_body_fast if track else mapping_body
-            with record_function("frame.map"):
+            with obs.span("frame.map", fid):
                 map_state, mlp, color_mlp, sem_mlp, loss2 = map_fn(
                     res.map_state, state.mlp, state.color_mlp, state.sem_mlp, res.pool,
                     travel_dist, frame_id, window, iters, mlp_lr_scale,
@@ -750,38 +771,45 @@ class StreamingSlam:
         ``points=None``, the scan and IMU window of ``frame_id`` read from
         the config's directories. ``draws`` injects the frame's random
         numbers (see make_frame_step)."""
+        with obs.frame_scope(self.device):
+            self._process_frame(frame_id, points, imu_window, point_ts, draws)
+
+    def _process_frame(self, frame_id, points, imu_window, point_ts, draws):
         cfg = self.cfg
         d = self.dataset
-        if points is None:
-            d.read_frame(frame_id)
-            imu_window = d.read_imu_window(frame_id)
-        else:
-            d.read_frame_arrays(np.asarray(points), point_ts)
-        points, point_ts = d._raw_points, d._raw_ts
-        crop_max_range = cfg.max_range
-        if cfg.adaptive_range_on:
-            crop_max_range = adaptive_crop_range(points, cfg.max_range)
-        p_cap = cfg.max_scan_points
-        n = points.shape[0]
-        if n > p_cap:
-            sel = np.random.default_rng(frame_id).permutation(n)[:p_cap]
-            sel.sort()
-            points = points[sel]
-            point_ts = point_ts[sel] if point_ts is not None else None
-        if imu_window is not None and len(imu_window) > self.imu_max_rows:
-            warnings.warn(
-                f"frame {frame_id}: IMU window has {len(imu_window)} rows, "
-                f"truncating to imu_max_rows={self.imu_max_rows}",
-                RuntimeWarning,
+        fid = str(frame_id)
+        with obs.span("frame.ingest", fid):
+            if points is None:
+                d.read_frame(frame_id)
+                imu_window = d.read_imu_window(frame_id)
+            else:
+                d.read_frame_arrays(np.asarray(points), point_ts)
+            points, point_ts = d._raw_points, d._raw_ts
+            crop_max_range = cfg.max_range
+            if cfg.adaptive_range_on:
+                crop_max_range = adaptive_crop_range(points, cfg.max_range)
+            p_cap = cfg.max_scan_points
+            n = points.shape[0]
+            if n > p_cap:
+                sel = np.random.default_rng(frame_id).permutation(n)[:p_cap]
+                sel.sort()
+                points = points[sel]
+                point_ts = point_ts[sel] if point_ts is not None else None
+            if imu_window is not None and len(imu_window) > self.imu_max_rows:
+                warnings.warn(
+                    f"frame {frame_id}: IMU window has {len(imu_window)} rows, "
+                    f"truncating to imu_max_rows={self.imu_max_rows}",
+                    RuntimeWarning,
+                )
+            track = cfg.track_on and frame_id > 0
+            filter_now = (frame_id + 1) % cfg.pool_filter_freq == 0
+            iters_base = cfg.iters * cfg.init_iter_ratio if frame_id == 0 else cfg.iters
+            mlp_scale = 0.0 if frame_id >= cfg.freeze_after_frame else 1.0
+            pack = pack_frame_buffers(
+                p_cap, self.imu_max_rows, points, point_ts if cfg.deskew else None, imu_window,
+                frame_id, crop_max_range, iters_base, mlp_scale,
+                frame_id > cfg.freeze_after_frame,
             )
-        track = cfg.track_on and frame_id > 0
-        filter_now = (frame_id + 1) % cfg.pool_filter_freq == 0
-        iters_base = cfg.iters * cfg.init_iter_ratio if frame_id == 0 else cfg.iters
-        mlp_scale = 0.0 if frame_id >= cfg.freeze_after_frame else 1.0
-        pack = pack_frame_buffers(
-            p_cap, self.imu_max_rows, points, point_ts if cfg.deskew else None, imu_window,
-            frame_id, crop_max_range, iters_base, mlp_scale, frame_id > cfg.freeze_after_frame,
-        )
         step = pack_adapter(self.steps[(track, filter_now)], p_cap, self.imu_max_rows)
         self.state, dropped, filtered = step(self.state, pack, draws)
         self.insert_dropped = self.insert_dropped + dropped
@@ -799,7 +827,7 @@ class StreamingSlam:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-            with record_function("ba"):
+            with obs.span("ba", fid):
                 self.state = self._ba_step(self.state, frame_id)
             if end is not None:
                 end.record()

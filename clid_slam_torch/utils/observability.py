@@ -1,9 +1,31 @@
-"""Optional observability: wandb scalar streaming + rich console status
-(the port's copy of clid_slam_tpu/utils/observability.py).
+"""Observability: profiler spans and counters inside the frame step, and
+optional wandb scalar streaming + rich console status (the latter the
+port's copy of clid_slam_tpu/utils/observability.py).
 
-Capability analog of the reference's logging surface
-(utils/tools.py:161-169 wandb.init, slam.py:379-387 per-frame timing
-scalars, utils/mapper.py:849-859 per-iteration losses,
+Tracing is on exactly while torch's profiler records (``torch.profiler.
+profile``, ``emit_nvtx``); no setting turns it on. ``span(name, args)`` is
+``record_function(name, args)`` while tracing and a shared no-op context
+otherwise, so a span costs one flag check when nothing records. A
+top-level span is named ``frame.<stage>`` (or ``ba``) and carries the frame
+id as ``args``; a span nested in one is ``frame.<stage>.<part>``.
+
+While tracing, the program counts (``count``): ``frames`` (frames processed
+by ``StreamingSlam.process_frame``), ``track.iters`` (IESEKF iterations),
+``map.steps`` (mapping steps, a device scalar on the fused kernel's path,
+summed only when ``counters()`` is read) and, on a CUDA device, ``syncs``
+with ``syncs.<top-level span>`` and ``syncs.unspanned``: the host's waits on
+the card inside ``process_frame``, caught as the warnings of
+``torch.cuda.set_sync_debug_mode("warn")`` (error-checked linalg, blocking
+copies either way, ``.item()``, ``bool()``, ``int()`` on device values).
+Nothing is read from the device inside a frame to count. ``counters()``
+returns a snapshot, ``reset_counters()`` clears them; nothing else does, so
+the counts of one profiler session run on into the next until a caller
+resets them. While syncs are counted, each one also costs the host the
+warning that counts it, inside the span being timed.
+
+The wandb and console sinks (``MetricsLogger``) reference the reference's
+logging surface (utils/tools.py:161-169 wandb.init, slam.py:379-387
+per-frame timing scalars, utils/mapper.py:849-859 per-iteration losses,
 utils/slam_dataset.py:759-767 final pose errors; rich console prints
 gated by ``silence``, utils/config.py:334).
 
@@ -17,7 +39,130 @@ the zero-readback loop).
 
 from __future__ import annotations
 
+import contextlib
+import warnings
 from typing import Optional
+
+import torch
+from torch.profiler import record_function
+
+_NOOP = contextlib.nullcontext()
+_SYNC_WARNING = "synchronizing CUDA operation"
+_counts: dict = {}
+_pending: dict = {}  # name -> device scalar summed on the device, added to _counts when read
+_frame = None  # the _Frame in progress while tracing
+
+
+def tracing() -> bool:
+    """Whether torch's profiler is recording."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def span(name: str, args: Optional[str] = None):
+    """A profiler range named ``name`` while tracing, else a no-op."""
+    if not tracing():
+        return _NOOP
+    if _frame is not None and _frame.log is not None and name.count(".") < 2:
+        return _SyncSpan(_frame, name, args)
+    return record_function(name, args)
+
+
+def count(name: str, n=1):
+    """Add ``n`` (an int, or a device scalar read when ``counters()`` is)
+    to the counter ``name`` while tracing."""
+    if not tracing():
+        return
+    if isinstance(n, torch.Tensor):
+        _pending[name] = _pending[name] + n if name in _pending else n
+    else:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A snapshot of the counters: {name: count}; empty where nothing was
+    counted."""
+    for name, n in _pending.items():
+        _counts[name] = _counts.get(name, 0) + int(n)
+    _pending.clear()
+    return dict(_counts)
+
+
+def reset_counters():
+    _counts.clear()
+    _pending.clear()
+
+
+def frame_scope(device: torch.device):
+    """The context of one ``process_frame``: while tracing, it counts the
+    frame and, on a CUDA device, the host's syncs by top-level span."""
+    if not tracing():
+        return _NOOP
+    return _Frame(device.type == "cuda")
+
+
+class _Frame:
+    def __init__(self, count_syncs: bool):
+        self.count_syncs = count_syncs
+        self.log = None  # the caught warnings, while counting syncs
+        self.others = []  # caught warnings that are not syncs, re-emitted at the end
+
+    def __enter__(self):
+        global _frame
+        count("frames")
+        if self.count_syncs:
+            self._catch = warnings.catch_warnings(record=True)
+            self.log = self._catch.__enter__()
+            warnings.simplefilter("always")
+            self._mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+        _frame = self
+        return self
+
+    def take(self, where: str):
+        """Count the syncs caught since the last take as ``where``'s."""
+        n = 0
+        for w in self.log:
+            if _SYNC_WARNING in str(w.message):
+                n += 1
+            else:
+                self.others.append(w)
+        self.log.clear()
+        if n:
+            for name in ("syncs", f"syncs.{where}"):
+                _counts[name] = _counts.get(name, 0) + n
+
+    def __exit__(self, *exc):
+        global _frame
+        _frame = None
+        if self.log is None:
+            return False
+        try:
+            torch.cuda.set_sync_debug_mode(self._mode)
+            self.take("unspanned")
+        finally:
+            self._catch.__exit__(*exc)
+        for w in self.others:
+            warnings.warn_explicit(w.message, w.category, w.filename, w.lineno, source=w.source)
+        return False
+
+
+class _SyncSpan:
+    """A top-level span while syncs are counted: the syncs caught before it
+    are unspanned, those inside it its own."""
+
+    def __init__(self, frame: _Frame, name: str, args: Optional[str]):
+        self.frame, self.name = frame, name
+        self.range = record_function(name, args)
+
+    def __enter__(self):
+        self.frame.take("unspanned")
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        self.frame.take(self.name)
+        return False
 
 
 class MetricsLogger:

@@ -4,7 +4,8 @@ the CPU (the pattern of tests/test_streaming.py:208, also with the
 dynamic filter and bundle adjustment on, whose draws come from the saved
 generator); a checkpoint written by the JAX package loads into the port
 array by array and tracks on, also with the color and semantic heads'
-wider leaves; a file of another config is refused."""
+wider leaves; a file of another config is refused; every leaf of the state
+is row-major, as a checkpoint holds it."""
 
 import numpy as np
 import jax
@@ -66,6 +67,20 @@ def test_resume_equals_the_uninterrupted_run(seq, tmp_path, options):
     if options:
         assert len(out_c["filtered"]) == 9  # every tracked frame was filtered
         assert out_c["ba_frames"] == [7]
+
+
+@pytest.mark.parametrize("options", [{}, DYNBA], ids=["plain", "filter_and_ba"])
+def test_state_leaves_are_row_major(seq, options):
+    # a checkpoint, or any host copy, holds the state row-major: a leaf in
+    # another layout would make the next frame round otherwise after a copy
+    # than without one (on the card a tracked pose can move by 1e-4)
+    s = _boot(port_config(tiny_config(**options)), seq)
+    for i in range(8):
+        s.process_frame(i, seq.scans[i], seq.imu_windows[i])
+    assert s.sync()["ba_frames"] == ([7] if options else [])
+    leaves = s.state.leaves()
+    assert [k for k, x in enumerate(leaves)
+            if isinstance(x, torch.Tensor) and not x.is_contiguous()] == []
 
 
 def test_jax_checkpoint_loads_into_the_port(seq, tmp_path):
