@@ -257,8 +257,7 @@ def layer_norm_feats(f: torch.Tensor) -> torch.Tensor:
 def conj_rotate(quats: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """Rotate ``vecs`` [..., 3] by the conjugates of ``quats`` [..., 4]
     (wxyz), in the JAX package's operation order."""
-    q = quats * torch.tensor([1.0, -1.0, -1.0, -1.0], device=quats.device)
-    w, u = q[..., :1], q[..., 1:]
+    w, u = quats[..., :1], -quats[..., 1:]  # no host constant: a CUDA graph can hold it
     uv = torch.linalg.cross(u.expand_as(vecs), vecs, dim=-1)
     return vecs + 2.0 * (w * uv + torch.linalg.cross(u.expand_as(uv), uv, dim=-1))
 

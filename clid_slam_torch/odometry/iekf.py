@@ -10,9 +10,14 @@ Device loops:
   associative formulation as JAX's ``associative_scan``.
 - ``make_cached_update_fn`` (one probe per frame, dense math per
   iteration) and ``make_update_iterated_fn`` (the map re-queried at every
-  iteration through ``make_h_reduce_fn``) share one Python loop with the
-  JAX while-loop's exit rules (convergence, stagnation, low validity). It
-  reads the exit flag on the host once per iteration.
+  iteration through ``make_h_reduce_fn``) share one iteration
+  (``_iteration``) with the JAX while-loop's exit rules (convergence,
+  stagnation, low validity) computed on the device. The host reads the exit
+  flag once per iteration. On a CUDA device the cached update replays the
+  iteration from a CUDA graph captured at its first call
+  (``_GraphedIterations``), the same kernels on the same layouts; on the
+  CPU, and in the re-querying update (data-dependent map probes), the
+  iterations run eagerly.
 
 Both measurement reductions decode weighted-first (the IDW-weighted
 feature decoded once) or, with ``weighted_first=False``, decode each
@@ -331,12 +336,14 @@ def device_predict_imu(rot, pos, vel, bg, ba, grav, P, Q, imu_rows, imu_count):
 
 
 def _equilibrated_solve(A, B):
-    """Solve A X = B with Jacobi equilibration (unit diagonal first)."""
+    """Solve A X = B with Jacobi equilibration (unit diagonal first). The
+    factorisation's error flag is not read: a singular A gives non-finite
+    values, as the JAX solve does, and the host never waits on the card."""
     d = torch.sqrt(torch.clamp(torch.diagonal(A), min=1e-20))
     Dinv = 1.0 / d
     An = A * Dinv[:, None] * Dinv[None, :]
     Bn = B * Dinv[:, None]
-    return torch.linalg.solve(An, Bn) * Dinv[:, None]
+    return torch.linalg.solve_ex(An, Bn)[0] * Dinv[:, None]
 
 
 def _normal_equations(points_imu, rot, grad, sdf_pred, valid, info_scale):
@@ -356,61 +363,238 @@ def _normal_equations(points_imu, rot, grad, sdf_pred, valid, info_scale):
     return S6, b6, torch.sum(vf)
 
 
-def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, *, max_iteration, term_rad,
-                     term_thre_m, eps, min_valid_ratio, stagnation_iter):
-    """The iterated IESEKF update over ``h_reduce(rot, pos) -> (S6, b6,
-    n_valid)`` (utils/error_state_iekf.py:266-337). Returns (rot, pos,
-    rest, P_new, ok, n_iter)."""
+def _update_start(mask, rot0, pos0, rest0, P):
+    """What an iterated update fixes before its first iteration: the
+    constants (rot0, pos0, rest0, P⁻¹, n_total, I18) and the initial state
+    (rot, pos, rest, A_inv, prev_step, ok, n_valid, i), all on the card."""
     dev = mask.device
     n_total = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
     I18 = torch.eye(18, device=dev)
-    P_inv = _equilibrated_solve(P, I18)
-    rot, pos, rest, A_inv = rot0, pos0, rest0, P
-    n_valid = torch.zeros((), device=dev)
-    ok = torch.ones((), dtype=torch.bool, device=dev)
-    prev_step = torch.full((), float("inf"), device=dev)
-    i = 0
-    while i < max_iteration:
-        with obs.span("frame.track.iter"):
-            drot = lie.so3_log(rot0.T @ rot)
-            dx_new = torch.cat([drot, pos - pos0, rest - rest0])
-            S6, b6, n_valid = h_reduce(rot, pos)
-            S18 = torch.zeros((18, 18), device=dev)
-            S18[:6, :6] = S6
-            b18 = torch.zeros(18, device=dev)
-            b18[:6] = b6
-            sol = _equilibrated_solve(S18 + P_inv, torch.cat([b18[:, None], S18, I18], 1))
-            KH = sol[:, 1:19]
-            A_inv = sol[:, 19:]
-            dx = -sol[:, 0] + (KH - I18) @ dx_new
-            # trust region: steps beyond the frame-level failure bound are
-            # solver blow-ups, never real motion
-            tran_raw = torch.linalg.norm(dx[3:6])
-            dx = dx * torch.clamp(10.0 / torch.clamp(tran_raw, min=1e-12), max=1.0)
-            rot = rot @ lie.so3_exp(dx[0:3])
-            pos = pos + dx[3:6]
-            rest = rest + dx[6:18]
-            tran_m = torch.linalg.norm(dx[3:6])
-            rot_rad = torch.linalg.norm(dx[0:3])
-            converged = (
-                (rot_rad < term_rad) & (tran_m < term_thre_m)
-                & torch.all(torch.abs(dx[6:]) < eps)
-            )
-            step = rot_rad + tran_m
-            stalled = (i >= stagnation_iter) & (step >= prev_step)
-            low_valid = (n_valid / n_total < min_valid_ratio) & (i == max_iteration - 1)
-            ok = ~low_valid
-            prev_step = step
-            i += 1
-            if bool(converged | low_valid | stalled):  # one host read per iteration
-                break
-    obs.count("track.iters", i)
-    ok = ok & ~((n_valid / n_total < min_valid_ratio) & (i == max_iteration))
+    consts = (rot0, pos0, rest0, _equilibrated_solve(P, I18), n_total, I18)
+    state = (rot0, pos0, rest0, P, torch.full((), float("inf"), device=dev),
+             torch.ones((), dtype=torch.bool, device=dev), torch.zeros((), device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    return consts, state
+
+
+def _iteration(h_reduce, consts, state, *, max_iteration, term_rad, term_thre_m, eps,
+               min_valid_ratio, stagnation_iter):
+    """One iteration of the iterated IESEKF update over ``h_reduce(rot, pos)
+    -> (S6, b6, n_valid)`` (utils/error_state_iekf.py:266-337), with its
+    exit rules on the card: (the next state, a bool that says stop). The
+    state's ``i`` counts the iterations run."""
+    rot0, pos0, rest0, P_inv, n_total, I18 = consts
+    rot, pos, rest, _, prev_step, _, _, i = state
+    drot = lie.so3_log(rot0.T @ rot)
+    dx_new = torch.cat([drot, pos - pos0, rest - rest0])
+    S6, b6, n_valid = h_reduce(rot, pos)
+    S18 = torch.zeros((18, 18), device=rot.device)
+    S18[:6, :6] = S6
+    b18 = torch.zeros(18, device=rot.device)
+    b18[:6] = b6
+    sol = _equilibrated_solve(S18 + P_inv, torch.cat([b18[:, None], S18, I18], 1))
+    KH = sol[:, 1:19]
+    A_inv = sol[:, 19:]
+    dx = -sol[:, 0] + (KH - I18) @ dx_new
+    # trust region: steps beyond the frame-level failure bound are solver
+    # blow-ups, never real motion
+    tran_raw = torch.linalg.norm(dx[3:6])
+    dx = dx * torch.clamp(10.0 / torch.clamp(tran_raw, min=1e-12), max=1.0)
+    rot = rot @ lie.so3_exp(dx[0:3])
+    pos = pos + dx[3:6]
+    rest = rest + dx[6:18]
+    tran_m = torch.linalg.norm(dx[3:6])
+    rot_rad = torch.linalg.norm(dx[0:3])
+    converged = (
+        (rot_rad < term_rad) & (tran_m < term_thre_m) & torch.all(torch.abs(dx[6:]) < eps)
+    )
+    step = rot_rad + tran_m
+    stalled = (i >= stagnation_iter) & (step >= prev_step)
+    low_valid = (n_valid / n_total < min_valid_ratio) & (i == max_iteration - 1)
+    state = (rot, pos, rest, A_inv, step, ~low_valid, n_valid, i + 1)
+    return state, converged | low_valid | stalled
+
+
+def _update_result(consts, state, *, max_iteration, min_valid_ratio, **_):
+    """(rot, pos, rest, P_new, ok, n_iter) of the state the iterations left."""
+    n_total = consts[4]
+    rot, pos, rest, A_inv, _, ok, n_valid, n_iter = state
+    ok = ok & ~((n_valid / n_total < min_valid_ratio) & (n_iter == max_iteration))
     # row-major, as a host copy or a checkpoint of the state holds it: the sum
     # comes out transposed, and the next frame's products round otherwise in
     # the two layouts
     P_new = (0.5 * (A_inv + A_inv.T)).contiguous()
-    return rot, pos, rest, P_new, ok, torch.tensor(i, dtype=torch.int32, device=dev)
+    return rot, pos, rest, P_new, ok, n_iter
+
+
+def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, **loop_kw):
+    """The iterated IESEKF update, its iterations run eagerly. Returns (rot,
+    pos, rest, P_new, ok, n_iter)."""
+    consts, state = _update_start(mask, rot0, pos0, rest0, P)
+    i = 0
+    while i < loop_kw["max_iteration"]:
+        with obs.span("frame.track.iter"):
+            state, stop = _iteration(h_reduce, consts, state, **loop_kw)
+            i += 1
+            if bool(stop):  # one host read per iteration
+                break
+    obs.count("track.iters", i)
+    return _update_result(consts, state, **loop_kw)
+
+
+class _GraphedIterations:
+    """The cached update's iterations on the card: one iteration captured
+    as a CUDA graph over fixed buffers, replayed once an iteration, with one
+    host read of its stop flag. It computes what ``_iterated_update`` does
+    to the bit: the same kernels on the same layouts.
+
+    ``inputs`` (candidates, mlp, points_imu, mask, rot0, pos0, rest0, P) fix
+    the buffers' shapes and strides; ``run`` copies a frame's inputs into
+    them. The capture (a warm-up on a side stream, as ``torch.cuda.graphs``
+    asks, then the graph) happens here, at the first call for these
+    shapes: ``precompile()`` makes that call before frame 0. A replay
+    dispatches no operation for a profiler to count, so while tracing
+    ``run`` counts the replays' operations in ``track.graph_flops``: one
+    eager iteration's (``iteration_flops``), counted when the counters are
+    read, after the traced frames."""
+
+    def __init__(self, make_h_reduce, inputs, loop_kw):
+        self.loop_kw = loop_kw
+        self.flops = None  # iteration_flops()
+        self.inputs = _clone_inputs(inputs)
+        self.device = inputs[2].device
+        cands, mlp, points_imu, mask, rot0, pos0, rest0, P = self.inputs
+        # held for the graph's life: the graph reads the tensors it closes over
+        self.h_reduce = h_reduce = make_h_reduce(cands, mlp, points_imu, mask)
+        with torch.cuda.device(self.device):
+            self.consts, state = _update_start(mask, rot0, pos0, rest0, P)
+            self.state = tuple(x.clone() for x in state)
+            self.stop = torch.zeros((), dtype=torch.bool, device=self.device)
+
+            def step():
+                state, stop = _iteration(h_reduce, self.consts, self.state, **loop_kw)
+                for buf, x in zip(self.state, state):
+                    buf.copy_(x)
+                self.stop.copy_(stop)
+
+            # cuBLAS keeps a workspace (~35 MB) per stream. Cleared before
+            # each phase and after the capture, one at a time is allocated
+            # (the capture's stays in the graph's pool), so the capture's
+            # allocated peak is an eager iteration's (torch._inductor's
+            # graphs do the same). The call is private to torch (there in
+            # torch 2.11 and 2.13) and may go in another version: then the
+            # capture fails here, before any frame.
+            torch._C._cuda_clearCublasWorkspaces()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    step()
+            torch.cuda.current_stream().wait_stream(side)
+            torch._C._cuda_clearCublasWorkspaces()
+            self.graph = torch.cuda.CUDAGraph()
+            # thread-local: another thread's CUDA call during the capture
+            # (NCCL's watchdog querying its events, in the sharded driver)
+            # neither fails nor invalidates it; this thread's still fail
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                step()
+            torch._C._cuda_clearCublasWorkspaces()
+
+    def run(self, inputs):
+        for buf, x in zip(_leaves(self.inputs), _leaves(inputs)):
+            buf.copy_(x)
+        cands, mlp, points_imu, mask, rot0, pos0, rest0, P = self.inputs
+        consts, state = _update_start(mask, rot0, pos0, rest0, P)
+        # rot0, pos0, rest0 and I18 are buffers already
+        for buf, x in zip(self.consts[3:5] + self.state, consts[3:5] + state):
+            buf.copy_(x)
+        i = 0
+        with torch.cuda.device(self.device):
+            while i < self.loop_kw["max_iteration"]:
+                with obs.span("frame.track.iter"):
+                    self.graph.replay()
+                    i += 1
+                    if bool(self.stop):  # one host read per iteration
+                        break
+        obs.count("track.iters", i)
+        obs.count("track.graph_iters", i)
+        obs.count("track.graph_flops", lambda: i * self.iteration_flops())
+        rot, pos, rest, P_new, ok, n_iter = _update_result(self.consts, self.state,
+                                                           **self.loop_kw)
+        # the buffers are this object's: the caller gets copies
+        return rot.clone(), pos.clone(), rest.clone(), P_new, ok, n_iter.clone()
+
+    def iteration_flops(self) -> int:
+        """The operations of one iteration (``flops_of``), counted once on an
+        eager iteration over the buffers, which it leaves as they are."""
+        if self.flops is None:
+            with torch.cuda.device(self.device):
+                self.flops = sum(flops_of(lambda: _iteration(
+                    self.h_reduce, self.consts, self.state, **self.loop_kw)).values())
+        return self.flops
+
+
+def flops_of(fn: Callable[[], object]) -> dict:
+    """Run ``fn()`` once and return its operations by op, ``{"aten::mm":
+    n, ...}``, by the formulas of torch's profiler (``with_flops``, the
+    count ``frame_mfu`` reads): 2·m·n·k a matrix product, and for each
+    ``mul`` and ``add`` one an element of its first operand. Counted on the
+    dispatched ops, it also counts the autograd engine's sums of gradients,
+    which the profiler does not record (a few % of an IESEKF iteration).
+    No profiler is started (one takes seconds to start on the card, and
+    profilers do not nest), but a first dispatch mode imports
+    ``torch._dynamo`` (about 2 s). A profiler that runs already records the
+    counted ops twice (as dispatched, and as the counting mode runs them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def numel(x):
+        return x.numel() if isinstance(x, torch.Tensor) else 0
+
+    def product(a, b):  # [.., m, k] @ [.., k, n]
+        return 2 * numel(a) * b.shape[-1]
+
+    aten = torch.ops.aten
+    rules = {aten.mm: lambda a, b, *_, **__: product(a, b),
+             aten.bmm: lambda a, b, *_, **__: product(a, b),
+             aten.addmm: lambda c, a, b, *_, **__: product(a, b),
+             aten.baddbmm: lambda c, a, b, *_, **__: product(a, b),
+             aten.mul: lambda a, *_, **__: numel(a),
+             aten.add: lambda a, *_, **__: numel(a)}
+    counts = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            rule = rules.get(func.overloadpacket)
+            if rule is not None:
+                name = f"aten::{func.overloadpacket.__name__}"
+                counts[name] = counts.get(name, 0) + rule(*args, **(kwargs or {}))
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return counts
+
+
+def _clone_inputs(inputs):
+    """(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P) copied into
+    tensors of their own with the same shapes and strides (a candidate may
+    be None; a strided view, as the sharded tracker's slices of its
+    exchanged payload, gets a buffer strided as it is)."""
+    cands, mlp, *rest = inputs
+
+    def fn(x):
+        x = x.detach()
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device=x.device).copy_(x)
+
+    mlp = dec.MLPParams([fn(w) for w in mlp.weights], [fn(b) for b in mlp.biases],
+                        fn(mlp.w_out), fn(mlp.b_out))
+    return (tuple(None if c is None else fn(c) for c in cands), mlp, *[fn(x) for x in rest])
+
+
+def _leaves(inputs):
+    cands, mlp, *rest = inputs
+    return [c for c in cands if c is not None] + mlp.tensors() + rest
 
 
 def _decoded_mean_std(pred_k, w):
@@ -490,7 +674,8 @@ def make_cached_update_fn(
         cand_quat = map_state.quats[safe] if rotate_vecs else None
         return cand_pos, cand_feat, cvalid, cand_quat
 
-    def dense_update(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P):
+    def make_h_reduce(candidates, mlp, points_imu, mask):
+        """h_reduce(rot, pos) -> (S6, b6, n_valid) over the frame's candidates."""
         cand_pos, cand_feat, cvalid, cand_quat = candidates
         iot = torch.arange(n_cand, device=points_imu.device)
         tie = iot[None, :] < iot[:, None]  # [C,C] j<i
@@ -533,7 +718,23 @@ def make_cached_update_fn(
                 valid = valid & (sdf_std < max_sdf_std)
             return _normal_equations(points_imu, rot, grad, pred.detach(), valid, info_scale)
 
-        return _iterated_update(h_reduce_cached, mask, rot0, pos0, rest0, P, **loop_kw)
+        return h_reduce_cached
+
+    graphs = {}  # the captured iterations by their inputs' shapes, layouts and device
+
+    def dense_update(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P):
+        """The iterations over built candidates: replays of one captured
+        iteration on a CUDA device, the eager loop elsewhere."""
+        inputs = (candidates, mlp, points_imu, mask, rot0, pos0, rest0, P)
+        if points_imu.device.type != "cuda":
+            h_reduce = make_h_reduce(candidates, mlp, points_imu, mask)
+            return _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, **loop_kw)
+        # the factory fixes the options and exit constants; the inputs' shapes,
+        # layouts, dtypes and device fix the rest of what a capture holds
+        key = tuple((x.shape, x.stride(), x.dtype, x.device) for x in _leaves(inputs))
+        if key not in graphs:
+            graphs[key] = _GraphedIterations(make_h_reduce, inputs, loop_kw)
+        return graphs[key].run(inputs)
 
     def body(map_state, mlp, points_imu, mask, rot0, pos0, rest0, P,
              travel_dist, cur_ts, window):

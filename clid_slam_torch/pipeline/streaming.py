@@ -30,7 +30,8 @@ frame step, the scan carries no per-point colors or classes, so the pool's
 labels stay 0 and -1.
 
 Host reads inside a frame: the iterated update reads its exit flag once
-per iteration, frame 0 reads its iteration count to size the outer
+per iteration (on the card, after a replay of the iteration's CUDA graph,
+captured in ``precompile()`` or at the first tracked frame), frame 0 reads its iteration count to size the outer
 mapping loop, and a tracked frame on the autograd loop reads its step
 count once. Everything else stays on the device until ``sync()``, but the
 host still waits on the device where a step copies a host scalar or
@@ -52,7 +53,8 @@ ranges: ``frame.track.candidates``, ``frame.track.iter`` (one an IESEKF
 iteration), ``frame.prep.local_map``, ``frame.prep.sample``,
 ``frame.prep.insert``, ``frame.prep.pool`` and ``frame.map.cache``.
 Counters: ``frames``, ``track.iters``, ``map.steps`` and, on the card,
-``syncs`` with ``syncs.<top-level range>`` and ``syncs.unspanned``.
+``track.graph_iters``, ``track.graph_flops`` and ``syncs`` with
+``syncs.<top-level range>`` and ``syncs.unspanned``.
 """
 
 from __future__ import annotations

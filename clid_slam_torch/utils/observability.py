@@ -11,6 +11,11 @@ id as ``args``; a span nested in one is ``frame.<stage>.<part>``.
 
 While tracing, the program counts (``count``): ``frames`` (frames processed
 by ``StreamingSlam.process_frame``), ``track.iters`` (IESEKF iterations),
+``track.graph_iters`` (those of them that ran as a replay of the cached
+tracker's CUDA graph, ``odometry/iekf.py``), ``track.graph_flops`` (those
+replays' operations, which the profiler cannot see: a replay dispatches no
+torch operation; counted when ``counters()`` is read, by one eager
+iteration run then),
 ``map.steps`` (mapping steps, a device scalar on the fused kernel's path,
 summed only when ``counters()`` is read) and, on a CUDA device, ``syncs``
 with ``syncs.<top-level span>`` and ``syncs.unspanned``: the host's waits on
@@ -50,6 +55,7 @@ _NOOP = contextlib.nullcontext()
 _SYNC_WARNING = "synchronizing CUDA operation"
 _counts: dict = {}
 _pending: dict = {}  # name -> device scalar summed on the device, added to _counts when read
+_deferred: dict = {}  # name -> functions called when the counters are read
 _frame = None  # the _Frame in progress while tracing
 
 
@@ -68,11 +74,15 @@ def span(name: str, args: Optional[str] = None):
 
 
 def count(name: str, n=1):
-    """Add ``n`` (an int, or a device scalar read when ``counters()`` is)
-    to the counter ``name`` while tracing."""
+    """Add ``n`` to the counter ``name`` while tracing: an int, a device
+    scalar read when ``counters()`` is, or a function that returns an int,
+    called when ``counters()`` is (for a count whose work would disturb the
+    traced frames)."""
     if not tracing():
         return
-    if isinstance(n, torch.Tensor):
+    if callable(n):
+        _deferred.setdefault(name, []).append(n)
+    elif isinstance(n, torch.Tensor):
         _pending[name] = _pending[name] + n if name in _pending else n
     else:
         _counts[name] = _counts.get(name, 0) + int(n)
@@ -84,12 +94,16 @@ def counters() -> dict:
     for name, n in _pending.items():
         _counts[name] = _counts.get(name, 0) + int(n)
     _pending.clear()
+    for name, fns in _deferred.items():
+        _counts[name] = _counts.get(name, 0) + sum(int(f()) for f in fns)
+    _deferred.clear()
     return dict(_counts)
 
 
 def reset_counters():
     _counts.clear()
     _pending.clear()
+    _deferred.clear()
 
 
 def frame_scope(device: torch.device):

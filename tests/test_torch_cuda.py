@@ -8,6 +8,10 @@ without them; there, run it without the JAX conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
+The cached tracker's iterations, replayed from a CUDA graph, equal the
+eager loop on the card bit for bit: at each exit, with each option, across
+frames, and in a short stream.
+
 Tolerances: one Adam step rtol 1e-5 / atol 1e-6; n steps max diff < 3 lr
 (the t=1 Adam step is a sign function of the gradient, so elements whose
 gradient sits at the rounding noise may flip), and beside it tight limits
@@ -933,3 +937,287 @@ def test_mesh_through_the_kernels_equals_the_plain_gathers(monkeypatch, rotate_v
         assert gt.launches == before
     for a, b in zip(kernel, plain):
         np.testing.assert_array_equal(a, b)
+
+
+class _EagerIterations:
+    """Stands in for ``iekf._GraphedIterations``: the eager loop on the card,
+    the graph's reference."""
+
+    def __init__(self, make_h_reduce, inputs, loop_kw):
+        self.make_h_reduce, self.loop_kw = make_h_reduce, loop_kw
+
+    def run(self, inputs):
+        from clid_slam_torch.odometry import iekf
+
+        cands, mlp, points, mask, rot0, pos0, rest0, P = inputs
+        h_reduce = self.make_h_reduce(cands, mlp, points, mask)
+        return iekf._iterated_update(h_reduce, mask, rot0, pos0, rest0, P, **self.loop_kw)
+
+
+def _tracker_inputs(seed, dev, n=2048, c=16, f=8, pos_dim=3, quats=False):
+    """Built candidates, a decoder, scan points and a start for the cached
+    update's dense iterations: points on a sphere of radius 3 seen from
+    inside, neural points scattered about the surface (with ``quats``, each
+    with a random orientation), a pose off by a few centimetres and half a
+    degree. The decoder takes ``f`` features and a ``pos_dim`` wide
+    position (an encoded one where it is not 3)."""
+    from clid_slam_torch.models.decoder import init_mlp
+    from clid_slam_torch.utils import lie
+
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    u = rng.standard_normal((n, 3))
+    pts = 3.0 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    cand_pos = pts[:, None, :] + rng.normal(0, 0.25, (n, c, 3))
+    cvalid = rng.uniform(size=(n, c)) < 0.9
+    feat = rng.normal(0, 0.1, (n, c, f)) * cvalid[..., None]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    mlp = init_mlp(gen, f + pos_dim, 64, 1, 1)
+    mask = rng.uniform(size=n) < 0.95
+    rot0 = lie.so3_exp(t(rng.normal(0, np.deg2rad(0.5), 3)))
+    rest0 = np.zeros(12)
+    rest0[9:12] = [0.0, 0.0, -9.81]
+    P = np.eye(18) * 1e-2
+    q = rng.standard_normal((n, c, 4))
+    cand_quat = t(q / np.linalg.norm(q, axis=-1, keepdims=True)) if quats else None
+    return ((t(cand_pos), t(feat), t(cvalid, torch.bool), cand_quat), mlp, t(pts),
+            t(mask, torch.bool), rot0, t(rng.normal(0, 0.03, 3)), t(rest0), t(P))
+
+
+TRACKER_KW = dict(knn_k=6, n_cand=16, nb_offs=np.zeros((1, 3), np.int32), resolution=0.3,
+                  max_valid_dist2=3.0 * 0.9 ** 2, sdf_scale=0.055, min_grad_norm=0.0,
+                  max_grad_norm=100.0, min_nn_count=1, max_iteration=20, term_thre_deg=0.01,
+                  term_thre_m=0.001)
+# each exit of the iterations, by its constants
+TRACKER_EXITS = {
+    "first_iteration": dict(term_thre_deg=1e6, term_thre_m=1e6, eps=1e6),
+    "converged": dict(term_thre_deg=0.05, term_thre_m=0.005, eps=0.01, stagnation_iter=50),
+    "stalled": dict(term_thre_deg=0.0, term_thre_m=0.0, eps=0.0, stagnation_iter=2),
+    "low_valid_max_iteration": dict(term_thre_deg=0.0, term_thre_m=0.0, eps=0.0,
+                                    stagnation_iter=50, max_iteration=4, min_valid_ratio=2.0),
+}
+
+
+def _exit_holds(name, n_iter, ok, kw):
+    if name == "first_iteration":
+        return n_iter == 1 and ok
+    if name == "converged":
+        return 1 < n_iter < kw["max_iteration"] and ok
+    if name == "stalled":
+        return kw["stagnation_iter"] < n_iter < kw["max_iteration"] and ok
+    return n_iter == kw["max_iteration"] and not ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exit_", sorted(TRACKER_EXITS))
+def test_tracker_graph_equals_the_eager_loop_at_each_exit(exit_, monkeypatch):
+    """The cached update's iterations replayed from one captured CUDA graph
+    give the eager loop's rot, pos, rest, P, ok and n_iter bit for bit, at
+    each exit of the loop, and count each replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clid_slam_torch.odometry import iekf
+    from clid_slam_torch.utils import observability as obs
+
+    dev = _cuda()
+    kw = dict(TRACKER_KW, **TRACKER_EXITS[exit_])
+    inputs = _tracker_inputs(7, dev)
+    obs.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        graphed = iekf.make_cached_update_fn(**kw).dense_update(*inputs)
+    counted = obs.counters()
+    obs.reset_counters()
+    with monkeypatch.context() as m:
+        m.setattr(iekf, "_GraphedIterations", _EagerIterations)
+        eager = iekf.make_cached_update_fn(**kw).dense_update(*inputs)
+    for name, g, e in zip(("rot", "pos", "rest", "P", "ok", "n_iter"), graphed, eager):
+        assert g.device == e.device and g.dtype == e.dtype and g.shape == e.shape, name
+        assert torch.equal(g, e), name
+    n_iter, ok = int(eager[5]), bool(eager[4])
+    assert _exit_holds(exit_, n_iter, ok, kw), (n_iter, ok)
+    assert counted["track.iters"] == counted["track.graph_iters"] == n_iter
+
+
+# the options that change what an iteration computes
+TRACKER_OPTIONS = {
+    "rotated_positional": dict(rotate_vecs=True, encode="positional"),
+    "gaussian": dict(encode="gaussian"),
+    "decode_then_weight_bf16_leaky": dict(weighted_first=False, max_sdf_std=0.5, mlp_bf16=True,
+                                          mlp_leaky=True),
+}
+
+
+def _tracker_option(option, seed, dev):
+    """The cached update's keywords and inputs with the option ``option``
+    of TRACKER_OPTIONS (None: the defaults)."""
+    from clid_slam_torch.ops.encoding import make_encoder
+
+    opts = dict(TRACKER_OPTIONS.get(option, {}))
+    encode = opts.pop("encode", None)
+    encode_vecs, pos_dim = (None, 3) if encode is None else make_encoder(
+        num_bands=4, freq=8.0, base=2.0, use_gaussian=encode == "gaussian")
+    kw = dict(TRACKER_KW, encode_vecs=encode_vecs, **opts)
+    return kw, _tracker_inputs(seed, dev, pos_dim=pos_dim, quats=opts.get("rotate_vecs", False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", sorted(TRACKER_OPTIONS))
+def test_tracker_graph_equals_the_eager_loop_with_each_option(option, monkeypatch):
+    """Each option's iteration captures (no host constant inside it: the
+    quaternions' conjugate, the encoders' tables) and replays to the eager
+    loop's bits."""
+    from clid_slam_torch.odometry import iekf
+
+    kw, inputs = _tracker_option(option, 5, _cuda())
+    graphed = iekf.make_cached_update_fn(**kw).dense_update(*inputs)
+    with monkeypatch.context() as m:
+        m.setattr(iekf, "_GraphedIterations", _EagerIterations)
+        eager = iekf.make_cached_update_fn(**kw).dense_update(*inputs)
+    for name, g, e in zip(("rot", "pos", "rest", "P", "ok", "n_iter"), graphed, eager):
+        assert torch.equal(g, e), name
+    assert int(eager[5]) > 1
+
+
+@pytest.mark.gpu
+def test_one_captured_tracker_graph_serves_frames_with_new_inputs(monkeypatch):
+    """One capture, then frames whose candidates, decoder, points, mask,
+    start and covariance all change: each replayed frame equals the eager
+    loop on its own inputs, so no buffer keeps a stale frame."""
+    from clid_slam_torch.odometry import iekf
+
+    dev = _cuda()
+    captures = []
+
+    class Counted(iekf._GraphedIterations):
+        def __init__(self, *a):
+            captures.append(1)
+            super().__init__(*a)
+
+    monkeypatch.setattr(iekf, "_GraphedIterations", Counted)
+    body = iekf.make_cached_update_fn(**TRACKER_KW)
+    frames = [_tracker_inputs(seed, dev) for seed in (11, 12, 13, 12)]
+    graphed = []
+    for inputs in frames:
+        graphed.append(body.dense_update(*inputs))
+        # scribble over the allocator's free blocks: a graph that reads memory
+        # it does not hold reads this
+        junk = [torch.full((n,), 0x7F, dtype=torch.uint8, device=dev)
+                for n in (256, 4096, 1 << 16, 1 << 20) for _ in range(64)]
+        del junk
+    assert len(captures) == 1
+    monkeypatch.setattr(iekf, "_GraphedIterations", _EagerIterations)
+    eager_body = iekf.make_cached_update_fn(**TRACKER_KW)
+    iters = set()
+    for inputs, g in zip(frames, graphed):
+        e = eager_body.dense_update(*inputs)
+        for x, y in zip(g, e):
+            assert torch.equal(x, y)
+        iters.add(int(e[5]))
+    assert not torch.equal(graphed[0][1], graphed[1][1])  # the frames differ
+    for x, y in zip(graphed[1], graphed[3]):  # the same inputs again
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_streaming_with_the_tracker_graph_equals_the_eager_loop(monkeypatch):
+    """A short stream turning fast (36 degrees a second, so the IESEKF
+    iterates several times a frame), once with the captured tracker
+    (captured in ``precompile()``) and once with the eager loop on the card:
+    the same pose, iteration count and state after every frame."""
+    from clid_slam_torch.odometry import iekf
+    from clid_slam_torch.pipeline.synthetic import generate_sequence
+
+    graphed, _ = _tiny_system()
+    graphed.precompile()
+    eager, _ = _tiny_system()
+    seq = generate_sequence(n_frames=6, n_azimuth=256, n_elev=24, noise_std=0.01, seed=3,
+                            period_frames=100.0)
+    for system in (graphed, eager):
+        w = 2 * np.pi / 10.0
+        system.seed_pose(seq.poses[0][:3, :3], seq.poses[0][:3, 3],
+                         vel=seq.poses[0][:3, :3] @ np.array([3.0 * w, 0, 0]))
+    for i in range(6):
+        graphed.process_frame(i, seq.scans[i], seq.imu_windows[i])
+        with monkeypatch.context() as m:
+            m.setattr(iekf, "_GraphedIterations", _EagerIterations)
+            eager.process_frame(i, seq.scans[i], seq.imu_windows[i])
+        assert torch.equal(graphed.state.odom_poses[i], eager.state.odom_poses[i]), i
+        for x, y in zip(graphed.state.leaves(), eager.state.leaves()):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), i
+    iters = graphed.sync()["track_iters"][1:6]
+    assert np.array_equal(iters, eager.sync()["track_iters"][1:6]) and iters.max() > 2
+
+
+def _payload_candidates(inputs):
+    """``inputs`` with the candidates handed over as the sharded tracker
+    does (``parallel/spatial.py:make_sharded_tracker_fn``): positions and
+    features strided views of one exchanged [S,C,3+F+1] payload, the
+    validity computed from its last column."""
+    (cand_pos, cand_feat, cvalid, _), *rest = inputs
+    payload = torch.cat([cand_pos, cand_feat, cvalid[..., None].to(torch.float32)], -1)
+    return ((payload[..., :3], payload[..., 3:-1], payload[..., -1] > 0.5, None), *rest)
+
+
+@pytest.mark.gpu
+def test_tracker_graph_equals_the_eager_loop_on_strided_candidates(monkeypatch):
+    """Candidates as the sharded tracker hands them over, strided views of
+    its payload: the graph's buffers keep those strides, and the replays
+    give the eager loop's bits on the same views."""
+    from clid_slam_torch.odometry import iekf
+
+    inputs = _payload_candidates(_tracker_inputs(9, _cuda()))
+    assert not inputs[0][0].is_contiguous()
+    kw = dict(TRACKER_KW, **TRACKER_EXITS["converged"])
+    built = []
+
+    class Kept(iekf._GraphedIterations):
+        def __init__(self, *a):
+            super().__init__(*a)
+            built.append(self)
+
+    monkeypatch.setattr(iekf, "_GraphedIterations", Kept)
+    graphed = iekf.make_cached_update_fn(**kw).dense_update(*inputs)
+    assert [b.stride() for b in iekf._leaves(built[0].inputs)] == [
+        x.stride() for x in iekf._leaves(inputs)]
+    monkeypatch.setattr(iekf, "_GraphedIterations", _EagerIterations)
+    eager = iekf.make_cached_update_fn(**kw).dense_update(*inputs)
+    for name, g, e in zip(("rot", "pos", "rest", "P", "ok", "n_iter"), graphed, eager):
+        assert torch.equal(g, e), name
+    assert int(eager[5]) > 1
+
+
+def _profiled_flops(fn):
+    """torch's profiler's ``with_flops`` count of what ``fn()`` runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.flops or 0 for e in prof.key_averages())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", [None] + sorted(TRACKER_OPTIONS))
+def test_tracker_graph_counts_the_operations_its_replays_hide(option, monkeypatch):
+    """A replay dispatches no torch operation, so the profiler counts only
+    what runs around the replays; with ``track.graph_flops`` added, the
+    count is the profiler's count of the eager loop on the same inputs, and
+    above it by no more than the autograd engine's sums of gradients, which
+    ``iekf.flops_of`` counts and the profiler does not (under 5 %)."""
+    from clid_slam_torch.odometry import iekf
+    from clid_slam_torch.utils import observability as obs
+
+    kw, inputs = _tracker_option(option, 5, _cuda())
+    body = iekf.make_cached_update_fn(**kw)
+    body.dense_update(*inputs)  # the capture, outside the profiled call
+    obs.reset_counters()
+    seen = _profiled_flops(lambda: body.dense_update(*inputs))
+    hidden = obs.counters()["track.graph_flops"]
+    obs.reset_counters()
+    monkeypatch.setattr(iekf, "_GraphedIterations", _EagerIterations)
+    eager_body = iekf.make_cached_update_fn(**kw)
+    eager = _profiled_flops(lambda: eager_body.dense_update(*inputs))
+    obs.reset_counters()
+    assert hidden > 0 and eager <= seen + hidden < eager + 0.05 * hidden

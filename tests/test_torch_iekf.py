@@ -5,21 +5,28 @@ to the re-query update), weighted-first and decode-then-weight with the
 weighted SDF std gate (a gate of 10 keeps the points, 0 drops them all).
 Then the host f64 filter of the classic driver: ``predict`` over 200 IMU
 rows (1e-12) and ``update_iterated`` on JAX's trained cylinder room (pose
-within 1e-4, the same iteration count)."""
+within 1e-4, the same iteration count). Last, the cached update's eager
+loop on CPU tensors at each exit rule (the card's tests hold its CUDA
+graph to the same loop)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
 
 from clid_slam_torch.convert import mlp_from_numpy, neural_map_from_numpy
 from clid_slam_torch.odometry import iekf as tie
+from clid_slam_torch.utils import observability as obs
 from clid_slam_tpu.models import decoder as jdec
 from clid_slam_tpu.models import neural_map as jnm
 from clid_slam_tpu.odometry import iekf as jie
 from clid_slam_tpu.ops.voxel import neighbor_offsets
 from clid_slam_tpu.utils import lie as jlie
 from test_iekf import trained_scene  # noqa: F401  (JAX's trained cylinder room)
+from test_torch_cuda import (TRACKER_EXITS, TRACKER_KW, TRACKER_OPTIONS, _exit_holds,
+                             _payload_candidates, _tracker_inputs, _tracker_option)
 from torch_parity import n, t
 
 
@@ -277,3 +284,84 @@ def test_host_update_iterated_matches_jax(trained_scene):
     assert calls["torch"] == calls["jax"] > 1 and tok == jok is True
     np.testing.assert_allclose(tP, jP, rtol=1e-3, atol=1e-9)
     assert np.linalg.norm(tp[:3, 3]) < 0.05  # recovered near the true pose (identity)
+
+
+@pytest.mark.parametrize("exit_", sorted(TRACKER_EXITS))
+def test_cached_update_takes_the_eager_loop_on_the_cpu(exit_, monkeypatch):
+    """On CPU tensors the cached update's iterations run eagerly: nothing is
+    captured, no replay is counted, each exit rule ends the loop where the
+    card's test expects it, and ``n_iter`` is the iterations counted."""
+    def no_capture(*a):
+        raise AssertionError("a CUDA graph was built for CPU tensors")
+
+    monkeypatch.setattr(tie, "_GraphedIterations", no_capture)
+    kw = dict(TRACKER_KW, **TRACKER_EXITS[exit_])
+    inputs = _tracker_inputs(7, "cpu")
+    obs.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        rot, pos, rest, P, ok, n_iter = tie.make_cached_update_fn(**kw).dense_update(*inputs)
+    counted = obs.counters()
+    obs.reset_counters()
+    assert n_iter.dtype == torch.int32 and n_iter.device.type == "cpu"
+    assert _exit_holds(exit_, int(n_iter), bool(ok), kw), (int(n_iter), bool(ok))
+    assert counted["track.iters"] == int(n_iter) and "track.graph_iters" not in counted
+    assert torch.equal(P, P.T) and P.is_contiguous()
+
+
+def _profiled_flops(prof):
+    return {e.key: e.flops for e in prof.key_averages() if e.flops}
+
+
+@pytest.mark.parametrize("option", [None] + sorted(TRACKER_OPTIONS))
+def test_flops_of_counts_as_the_profiler_does(option):
+    """``flops_of``, which counts the card's captured iteration once for its
+    replays, runs the eager update and counts its products and its
+    elementwise ``mul`` as torch's profiler's ``with_flops`` does, forward
+    and backward, with each option's decoder; its ``add`` count holds the
+    profiler's and, beside it, the autograd engine's sums of gradients,
+    which the profiler does not record."""
+    kw, inputs = _tracker_option(option, 5, "cpu")
+    body = tie.make_cached_update_fn(**dict(kw, **TRACKER_EXITS["converged"]))
+    got = []
+    counted = tie.flops_of(lambda: got.append(body.dense_update(*inputs)))
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        want = body.dense_update(*inputs)
+    obs.reset_counters()
+    profiled = _profiled_flops(prof)
+    assert set(counted) == set(profiled) and counted["aten::mm"] > 0
+    for op, n in counted.items():
+        assert n >= profiled[op] if op == "aten::add" else n == profiled[op], op
+    assert counted["aten::add"] < 0.05 * sum(profiled.values()) + profiled["aten::add"]
+    for x, y in zip(got[0], want):
+        assert torch.equal(x, y)
+
+
+def test_flops_of_counts_inside_a_traced_run():
+    """A capture inside a traced run counts its iteration too: ``flops_of``
+    starts no profiler (one would end the running one), and the running
+    profiler goes on recording (the counted ops twice: as dispatched and as
+    the counting mode runs them)."""
+    body = tie.make_cached_update_fn(**dict(TRACKER_KW, **TRACKER_EXITS["converged"]))
+    inputs = _tracker_inputs(5, "cpu")
+    alone = tie.flops_of(lambda: body.dense_update(*inputs))
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as outer:
+        inside = tie.flops_of(lambda: body.dense_update(*inputs))
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as plain:
+        body.dense_update(*inputs)
+    obs.reset_counters()
+    outer, plain = _profiled_flops(outer), _profiled_flops(plain)
+    assert inside == alone and set(outer) == set(plain)
+    assert all(outer[op] >= 2 * plain[op] for op in plain)
+
+
+def test_graph_buffers_keep_the_inputs_strides():
+    """The buffers a capture reads are copies of the first inputs with their
+    shapes and strides, strided views of the sharded tracker's payload
+    too, so the replays run the eager loop's kernels on its layouts."""
+    inputs = _payload_candidates(_tracker_inputs(3, "cpu", n=64))
+    bufs = tie._clone_inputs(inputs)
+    leaves, copies = tie._leaves(inputs), tie._leaves(bufs)
+    assert len(leaves) == len(copies) and not leaves[0].is_contiguous()
+    for x, b in zip(leaves, copies):
+        assert b.stride() == x.stride() and b.dtype == x.dtype and torch.equal(b, x)
+        assert b.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()

@@ -8,7 +8,8 @@
   counters stay empty;
 - ``track.iters`` is the sum of the traced frames' ``track_iters``, and
   ``map.steps`` the mapping steps the loop ran, on the fused kernel's path
-  and on the autograd loop; no ``syncs`` are counted off the card;
+  and on the autograd loop; no ``syncs`` and no ``track.graph_iters`` (the
+  tracker's graph replays) are counted off the card;
 - poses, map, pool and decoders are bit for bit the same with tracing on
   and off;
 - each of the benchmark's readers of these spans and counters
@@ -16,7 +17,8 @@
   counter snapshot, and None where there is nothing to read.
 
 One test, marked ``gpu``, runs a frame on the card under the profiler: it
-counts the host's syncs, and the sync debug mode is off afterwards. This
+counts the host's syncs, and the sync debug mode is off afterwards; every
+IESEKF iteration there is a graph replay. This
 file imports neither JAX nor the JAX package.
 """
 
@@ -191,6 +193,11 @@ def test_no_syncs_are_counted_off_the_card(runs):
     assert not any(k.startswith("syncs") for k in runs.counters)
 
 
+def test_no_graph_replays_are_counted_off_the_card(runs):
+    # CPU tensors take the tracker's eager loop
+    assert runs.counters["track.iters"] > 0 and "track.graph_iters" not in runs.counters
+
+
 def test_tracing_changes_no_result(runs):
     a, b = runs.plain.state.leaves(), runs.traced.state.leaves()
     assert len(a) == len(b)
@@ -212,6 +219,30 @@ def test_mapping_steps_a_device_scalar_is_read_with_the_counters():
     assert obs.counters() == {}
 
 
+def test_a_deferred_count_is_called_when_the_counters_are_read():
+    # a function counted while tracing runs when counters() is read, after
+    # the traced frames, once; untraced, it is neither kept nor called
+    calls = []
+
+    def later(n):
+        calls.append(n)
+        return n
+
+    obs.reset_counters()
+    obs.count("graph.flops", lambda: later(7))
+    with profile(activities=[ProfilerActivity.CPU]):
+        obs.count("graph.flops", lambda: later(5))
+        obs.count("graph.flops", lambda: later(6))
+        obs.count("graph.flops", 1)
+    assert calls == []
+    assert obs.counters() == {"graph.flops": 12} and calls == [5, 6]
+    assert obs.counters() == {"graph.flops": 12} and calls == [5, 6]
+    with profile(activities=[ProfilerActivity.CPU]):
+        obs.count("graph.flops", lambda: later(9))
+    obs.reset_counters()
+    assert obs.counters() == {} and calls == [5, 6]
+
+
 def _reader(name):
     path = os.path.join(REPO, "benchmark", "metrics", f"{name}.py")
     spec = importlib.util.spec_from_file_location(f"trace_test_{name}", path)
@@ -225,18 +256,25 @@ HOST = {"frame.ingest": 4.0, "frame.upload": 1.5, "frame.predict": 2.0, "frame.t
         "frame.prep": 20.0, "frame.prep.local_map": 5.0, "frame.prep.sample": 6.0,
         "frame.prep.insert": 2.5, "frame.prep.pool": 4.5, "frame.iters": 0.5,
         "frame.map": 9.0, "frame.map.cache": 3.5, "ba": 7.0}
-COUNTS = {"frames": 10, "track.iters": 40, "map.steps": 120, "syncs": 230}
+COUNTS = {"frames": 10, "track.iters": 40, "track.graph_iters": 30,
+          "track.graph_flops": 300_000_000, "map.steps": 120, "syncs": 230}
 # reader -> its value from HOST and COUNTS (10 frames, a 60 ms frame)
 READINGS = {"ingest_ms": 4.0, "upload_ms": 1.5, "unspanned_ms": 60.0 - 50.0,
             "track_outside_ms": 5.0, "track_candidates_ms": 1.0, "track_iters": 4.0,
             "track_iter_ms": 2.0, "prep_local_map_ms": 5.0, "prep_sample_ms": 6.0,
             "prep_insert_ms": 2.5, "prep_pool_ms": 4.5, "map_cache_ms": 3.5,
-            "map_steps": 12.0, "host_syncs": 23.0}
-COUNTER_READERS = {"track_iters", "track_iter_ms", "map_steps", "host_syncs"}
+            "map_steps": 12.0, "host_syncs": 23.0, "track_graph_share": 0.75,
+            # K1's 2e8 and the profiler's 1e8 operations (frame_mfu: 5 %), and
+            # the replays' 3e8, over 0.6 s at 1e10 a second
+            "frame_mfu_with_replays": 10.0}
+COUNTER_READERS = {"track_iters", "track_iter_ms", "map_steps", "host_syncs",
+                   "track_graph_share", "frame_mfu_with_replays"}
 
 
 def _trace(stage_host_ms, frames=10, window_s=0.6):
-    return types.SimpleNamespace(frames=frames, window_s=window_s, stage_host_ms=stage_host_ms)
+    return types.SimpleNamespace(frames=frames, window_s=window_s, stage_host_ms=stage_host_ms,
+                                 k1=[{"flops": 2e8}], matmul_flops=1e8,
+                                 peak={"f32_flops": 1e10})
 
 
 @pytest.mark.parametrize("name", sorted(READINGS))
@@ -257,6 +295,25 @@ def test_reader_reads_none_where_there_is_nothing(name, monkeypatch):
         assert read(_trace(dict(HOST))) is None
 
 
+def test_graph_share_reads_none_from_a_program_without_the_graph(monkeypatch):
+    # the iterations counted, the replays not: a program that has no graph
+    counts = {k: v for k, v in COUNTS.items() if k != "track.graph_iters"}
+    monkeypatch.setattr(obs, "counters", lambda: counts)
+    assert _reader("track_graph_share")(_trace(dict(HOST))) is None
+    monkeypatch.setattr(obs, "counters", lambda: dict(counts, **{"track.graph_iters": 0}))
+    assert _reader("track_graph_share")(_trace(dict(HOST))) == 0.0
+
+
+def test_mfu_with_replays_reads_none_from_a_program_without_the_graph(monkeypatch):
+    # no replays counted: a program without the graph, which frame_mfu reads
+    counts = {k: v for k, v in COUNTS.items() if k != "track.graph_flops"}
+    monkeypatch.setattr(obs, "counters", lambda: counts)
+    assert _reader("frame_mfu_with_replays")(_trace(dict(HOST))) is None
+    monkeypatch.setattr(obs, "counters", lambda: dict(counts, **{"track.graph_flops": 0}))
+    trace = _trace(dict(HOST))
+    assert _reader("frame_mfu_with_replays")(trace) == _reader("frame_mfu")(trace) == 5.0
+
+
 @pytest.mark.gpu
 def test_a_frame_on_the_card_counts_its_syncs():
     if not torch.cuda.is_available():
@@ -272,5 +329,6 @@ def test_a_frame_on_the_card_counts_its_syncs():
     assert c["frames"] == 1 and c["syncs"] > 0
     assert c["syncs"] == sum(v for k, v in c.items() if k.startswith("syncs."))
     assert torch.cuda.get_sync_debug_mode() == 0
-    assert c["track.iters"] == int(system.sync()["track_iters"][1])
+    assert c["track.iters"] == c["track.graph_iters"] == int(system.sync()["track_iters"][1])
+    assert c["track.graph_flops"] > 0 and c["track.graph_flops"] % c["track.graph_iters"] == 0
     obs.reset_counters()
