@@ -13,6 +13,8 @@ cuDNN.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 
@@ -35,3 +37,26 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(t: torch.Tensor) -> Callable[[torch.device], torch.Tensor]:
+    """``t`` on a given device, copied there at the first call for it: later
+    calls copy nothing, so they wait for nothing and a CUDA graph can hold
+    the copy."""
+    copies = {}
+
+    def on(device):
+        if device not in copies:
+            copies[device] = t.to(device)
+        return copies[device]
+
+    return on
+
+
+def scalar(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """``x`` as a 0-d tensor of ``dtype`` on ``device``. A Python number is
+    filled in on the device (``torch.tensor`` would copy it from pageable
+    host memory, and the host would wait); a tensor is converted."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)

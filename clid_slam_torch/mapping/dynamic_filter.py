@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import on_device
 from ..models import decoder as dec
 from ..models import neural_map as nm
 
@@ -38,13 +39,13 @@ def make_dynamic_filter_fn(
     """Returns ``static_mask(map_state, mlp, points_world[N,3], mask[N],
     travel_dist, cur_ts, window) -> [N] bool``, detached. The query takes
     no ``layer_norm``, as the JAX filter's does not."""
-    offs_t = torch.as_tensor(nb_offs)
+    offs_t = on_device(torch.as_tensor(nb_offs))
 
     def static_mask(map_state, mlp, points_world, mask, travel_dist, cur_ts, window):
         with torch.enable_grad():
             pts = points_world.detach().requires_grad_(True)
             q = nm.query_feature(
-                map_state, pts, offs_t.to(pts.device), resolution, max_valid_dist2,
+                map_state, pts, offs_t(pts.device), resolution, max_valid_dist2,
                 knn_k, travel_dist, cur_ts, window, True, rotate_vecs=rotate_vecs,
                 encode_vecs=encode_vecs,
             )

@@ -32,6 +32,7 @@ from typing import List, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import on_device, scalar
 from ..models import decoder as dec
 from ..models import neural_map as nm
 from ..mapping.pool import ReplayPool, sample_batch_indices, split_rows
@@ -264,7 +265,7 @@ def make_mapping_fn(
     dec_step = gradient_decimation
     R = max(1, resample_every)
     W = bs * knn_k
-    offs_t = torch.as_tensor(nb_offs)
+    offs_t = on_device(torch.as_tensor(nb_offs))
     dkw = dict(leaky=mlp_leaky, bf16=mlp_bf16)
 
     def build_cache(map_state, pool, travel_dist, cur_ts, window, generator, draws):
@@ -283,7 +284,7 @@ def make_mapping_fn(
         coord, label, weight, ts, sem_lbl, color_lbl = split_rows(rows)
 
         d2, h, pvalid, mir = nm.neighborhood_probe(
-            map_state, coord, offs_t.to(dev), resolution, max_valid_dist2,
+            map_state, coord, offs_t(dev), resolution, max_valid_dist2,
             travel_dist, cur_ts, window, True,
         )
         nn_count = torch.sum(pvalid.to(torch.int32), dim=-1)
@@ -513,7 +514,7 @@ def make_mapping_fn(
             works0 = [gather_rows(slab, c.src_rows) for slab in slabs_of(map_state)]  # [W,F]
             n_iters = torch.as_tensor(iter_count, device=dev).to(torch.int32)
             inner_n = torch.clamp(n_iters, max=R)
-            mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
+            mlp_lr = lr * scalar(mlp_lr_scale, torch.float32, dev)
             if dup_independent:
                 f0s = [gather_rows_nd(w, c.local_idx) for w in works0]
         if not dup_independent:
@@ -585,7 +586,7 @@ def make_mapping_fn(
         mlp_ps, sizes = flat_leaves(mlps)
         mlp_m = [torch.zeros_like(t) for t in mlp_ps]
         mlp_v = [torch.zeros_like(t) for t in mlp_ps]
-        mlp_lr = lr * torch.as_tensor(mlp_lr_scale, device=dev, dtype=torch.float32)
+        mlp_lr = lr * scalar(mlp_lr_scale, torch.float32, dev)
         st = map_state
         losses = torch.zeros(2, device=dev)
         for o in range(n_outer):

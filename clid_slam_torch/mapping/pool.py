@@ -7,6 +7,10 @@ sem, pad, color...). ``valid`` marks live rows inside the sliding window;
 
 Random draws: each function that draws takes either a ``generator`` or the
 draws themselves, so a test can inject the numbers the JAX side drew.
+
+``filter_pool`` and ``append_samples`` return a new pool and leave theirs
+as it was; with ``inplace=True`` they write their pool's own tensors
+instead (the card's replayed map prep, ``mapping/prep.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..device import scalar
 from ..ops.scatter import ordered_cumsum, scatter_set
 
 _X, _SDF, _W, _TS, _SEM = 0, 3, 4, 5, 6
@@ -87,10 +92,16 @@ def init_pool(
     )
 
 
-def filter_pool(pool: ReplayPool, origin: torch.Tensor, window_radius) -> ReplayPool:
+def filter_pool(pool: ReplayPool, origin: torch.Tensor, window_radius,
+                inplace: bool = False) -> ReplayPool:
     """Mask-only sliding-window filter; invalidates the new-sample buffer."""
     d2 = torch.sum((pool.coords - origin) ** 2, dim=-1)
     keep = pool.valid & (d2 < window_radius * window_radius)
+    if inplace:
+        pool.valid.copy_(keep)
+        pool.new_buf.zero_()
+        pool.new_count.zero_()
+        return pool
     return replace(
         pool,
         valid=keep,
@@ -133,8 +144,10 @@ def append_samples(
     generator: Optional[torch.Generator] = None,
     color: Optional[torch.Tensor] = None,  # [M, C] color labels
     sem: Optional[torch.Tensor] = None,  # [M] class labels
+    inplace: bool = False,
 ) -> ReplayPool:
-    """Append one frame's masked samples; when the frame does not fit,
+    """Append one frame's masked samples (``frame_id`` an int or an int
+    tensor on the device); when the frame does not fit,
     samples evict uniform-random old slots. The class and color columns are
     written only when ``sem`` and ``color`` are given (else they keep -1
     and 0, as ``init_pool`` made them).
@@ -153,28 +166,30 @@ def append_samples(
         uniform = torch.as_tensor(uniform, device=coords.device)
     slot, fits, n_valid = append_slots(pool, mask, uniform)
 
-    ts = torch.full_like(sdf, 1.0) * torch.as_tensor(
-        frame_id, dtype=torch.float32, device=sdf.device
-    )
+    ts = torch.full_like(sdf, 1.0) * scalar(frame_id, torch.float32, sdf.device)
     vals = torch.stack([coords[:, 0], coords[:, 1], coords[:, 2], sdf, weight, ts], 1)
-    data = pool.data.clone()
+    own = (lambda t: t) if inplace else torch.clone
+    data = own(pool.data)
     scatter_set(data[:, : _TS + 1], slot, vals)
     if sem is not None:
         scatter_set(data[:, _SEM], slot, sem.to(torch.float32))
     if color is not None:
         scatter_set(data[:, BASE_COLS : BASE_COLS + color.shape[1]], slot, color)
-    valid = scatter_set(pool.valid.clone(), slot, torch.ones_like(mask))
+    valid = scatter_set(own(pool.valid), slot, torch.ones_like(mask))
 
     nb = pool.new_buf.shape[0]
     new_flag = mask & is_new
     noffs = torch.cumsum(new_flag.to(torch.int64), 0) - 1
-    new_buf = torch.zeros_like(pool.new_buf)
+    new_buf = pool.new_buf.zero_() if inplace else torch.zeros_like(pool.new_buf)
     scatter_set(new_buf, noffs, slot.to(torch.int32), new_flag & (noffs < nb))
-    new_count = torch.clamp(torch.sum(new_flag.to(torch.int32)), max=nb)
+    new_count = torch.clamp(torch.sum(new_flag.to(torch.int32)), max=nb).to(torch.int32)
     size = torch.where(
         fits, pool.size + n_valid, torch.full_like(pool.size, pool.data.shape[0])
     ).to(torch.int32)
-    return ReplayPool(data, valid, size, new_buf, new_count.to(torch.int32))
+    if inplace:
+        size = pool.size.copy_(size)
+        new_count = pool.new_count.copy_(new_count)
+    return ReplayPool(data, valid, size, new_buf, new_count)
 
 
 def retransform_coords(

@@ -9,6 +9,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
+from ..device import on_device
 from ..ops.gather import gather_rows_nd
 from ..ops.plane_fit import fit_plane_masked
 from ..ops.scatter import scatter_set
@@ -21,6 +22,7 @@ from ..ops.voxel import (
 
 # 7-cell probe: num_nei_cells=1, alpha=0.2
 LOCAL_NB_OFFSETS = torch.from_numpy(neighbor_offsets(1, 0.2))
+_local_nb_offsets = on_device(LOCAL_NB_OFFSETS)
 
 _EMPTY_POS = 1e9
 
@@ -59,10 +61,12 @@ def update_local_map(
     resolution,
     map_size,
     crop_now: bool = True,
+    inplace: bool = False,
 ) -> LocalMapState:
     """Insert new surface points into empty voxels, then (``crop_now``)
     radius-crop to ``map_size`` around the sensor and rebuild the hash;
-    otherwise append only."""
+    otherwise append only. ``inplace`` writes ``state``'s own tensors (the
+    returned state holds them) instead of new ones."""
     cap = state.positions.shape[0] - 1
     hsize = state.hash_table.shape[0]
     dev = points.device
@@ -76,19 +80,20 @@ def update_local_map(
     offs = torch.cumsum(insert.to(torch.int64), 0) - 1
     new_idx = state.count.long() + offs
     insert = insert & (new_idx < cap)
-    positions = scatter_set(state.positions.clone(), new_idx, points, insert)
+    own = (lambda t: t) if inplace else torch.clone
+    positions = scatter_set(own(state.positions), new_idx, points, insert)
     count = torch.clamp(
         state.count + torch.sum(insert.to(torch.int32)), max=cap
     ).to(torch.int32)
 
     if not crop_now:
-        hash_table = scatter_set(
-            state.hash_table.clone(), h, new_idx.to(torch.int32), insert
-        )
+        hash_table = scatter_set(own(state.hash_table), h, new_idx.to(torch.int32), insert)
         mir_rows = torch.cat(
             [points, torch.zeros((points.shape[0], 1), device=dev)], dim=1
         )
-        hash_mirror = scatter_set(state.hash_mirror.clone(), h, mir_rows, insert)
+        hash_mirror = scatter_set(own(state.hash_mirror), h, mir_rows, insert)
+        if inplace:
+            count = state.count.copy_(count)
         return LocalMapState(positions, count, hash_table, hash_mirror)
 
     # radius crop + compaction + rehash (one O(C) pass)
@@ -97,14 +102,23 @@ def update_local_map(
     d = torch.linalg.norm(positions - sensor_position, dim=-1)
     keep = live & (d < map_size)
     new_pos_idx = torch.cumsum(keep.to(torch.int64), 0) - 1
-    compacted = scatter_set(torch.zeros_like(positions), new_pos_idx, positions, keep)
     new_count = torch.sum(keep.to(torch.int32))
+    live2 = rows < new_count
+    if inplace:
+        # a kept row moves down only, and scatter_set reads its rows before
+        # it writes: the rows past the new count are then zeroed
+        compacted = scatter_set(positions, new_pos_idx, positions, keep)
+        compacted.masked_fill_(~live2[:, None], 0.0)
+        new_count = state.count.copy_(new_count)
+        hash_table = state.hash_table.fill_(-1)
+        hash_mirror = state.hash_mirror.fill_(_EMPTY_POS)
+    else:
+        compacted = scatter_set(torch.zeros_like(positions), new_pos_idx, positions, keep)
+        hash_table = torch.full((hsize,), -1, dtype=torch.int32, device=dev)
+        hash_mirror = torch.full((hsize, 4), _EMPTY_POS, dtype=torch.float32, device=dev)
 
     h2 = voxel_hash(grid_coords(compacted, resolution), hsize)
-    live2 = rows < new_count
-    hash_table = torch.full((hsize,), -1, dtype=torch.int32, device=dev)
     scatter_set(hash_table, h2, rows.to(torch.int32), live2)
-    hash_mirror = torch.full((hsize, 4), _EMPTY_POS, dtype=torch.float32, device=dev)
     mir_rows = torch.cat([compacted, torch.zeros((cap + 1, 1), device=dev)], dim=1)
     scatter_set(hash_mirror, h2, mir_rows, live2)
     return LocalMapState(compacted, new_count, hash_table, hash_mirror)
@@ -122,7 +136,7 @@ def region_specific_sdf(
     with ``with_normal``, (normal [N,3], fit_success [N])."""
     hsize = state.hash_table.shape[0]
     maxr = local_max_valid_range(resolution)
-    offs = LOCAL_NB_OFFSETS.to(points.device)
+    offs = _local_nb_offsets(points.device)
 
     g = grid_coords(points, resolution)
     cells = g[:, None, :] + offs[None, :, :]

@@ -9,7 +9,8 @@ gather per cell.
 Functions return new state objects; tensors that a function does not
 change are shared with the input state, and tensors it changes are new
 (``insert_points`` clones the slabs it writes), so a caller's old state
-stays valid.
+stays valid. ``insert_points(..., inplace=True)`` writes the state's own
+tensors instead (the card's replayed map prep, ``mapping/prep.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import on_device, scalar
 from ..ops.gather import gather_lanes, gather_rows_nd
 from ..ops.scatter import compact_indices, scatter_set, segment_add
 from ..utils import lie
@@ -32,6 +34,7 @@ from ..ops.voxel import (
 
 _EMPTY_POS = 1e9  # mirror sentinel: empty buckets sit "infinitely far away"
 INSERT_COMPACT_ROWS = 65536  # pre-probe compaction budget (see insert_points)
+_one_cell_offsets = on_device(torch.from_numpy(neighbor_offsets(1, 0.0)))
 
 
 @dataclass
@@ -105,9 +108,10 @@ def insert_points(
     mask: torch.Tensor,  # [M] bool
     resolution,
     travel_dist: torch.Tensor,  # [T]
-    cur_ts,
+    cur_ts,  # the frame id: an int, or an int tensor on the device
     diff_travel_dist_local,
     downsample: bool = True,
+    inplace: bool = False,
 ):
     """Insert new neural points (model/neural_points.py:324-437 semantics).
 
@@ -119,7 +123,11 @@ def insert_points(
     Mirrors the JAX behaviour on purpose: with more than 65,536 candidate
     rows, the (downsampled) candidates are compacted to the first 65,536
     before the probe and the rest are dropped silently there; the port
-    counts them in ``InsertStats.dropped``."""
+    counts them in ``InsertStats.dropped``.
+
+    ``inplace`` writes the new points into ``state``'s own tensors (the
+    returned state holds them), which a CUDA graph can replay; otherwise
+    the slabs written are copies, and ``state`` stays as it was."""
     cap = map_capacity(state)
     hsize = state.hash_table.shape[0]
     dev = points.device
@@ -145,7 +153,9 @@ def insert_points(
     collision = occupied & (dist2 > 3.0 * resolution * resolution)
     cur_idx = state.hash_table[h].to(torch.int64)
     safe_idx = torch.where(cur_idx >= 0, cur_idx, torch.full_like(cur_idx, cap))
-    delta_td = travel_dist[cur_ts] - travel_dist[state.ts_update[safe_idx].long()]
+    ts = scalar(cur_ts, torch.int32, dev)
+    cur_td = travel_dist[ts.long().reshape(1)]  # [1]: a device index, no host read
+    delta_td = cur_td - travel_dist[state.ts_update[safe_idx].long()]
     stale = delta_td > diff_travel_dist_local
 
     is_first = state.count == 0
@@ -162,26 +172,25 @@ def insert_points(
     wr = torch.arange(w, device=dev)
     wlive = wr < n_new
     new_idx_w = state.count.long() + wr
-    ts = torch.as_tensor(cur_ts, device=dev).to(torch.int32)
-    positions = scatter_set(state.positions.clone(), new_idx_w, stage_pts, wlive)
-    ts_create = scatter_set(state.ts_create.clone(), new_idx_w, ts, wlive)
-    ts_update = scatter_set(state.ts_update.clone(), new_idx_w, ts, wlive)
+    own = (lambda t: t) if inplace else torch.clone
+    positions = scatter_set(own(state.positions), new_idx_w, stage_pts, wlive)
+    ts_create = scatter_set(own(state.ts_create), new_idx_w, ts, wlive)
+    ts_update = scatter_set(own(state.ts_update), new_idx_w, ts, wlive)
     # two staged voxels can share a bucket: duplicates resolve last-wins
-    hash_table = scatter_set(
-        state.hash_table.clone(), stage_h, new_idx_w.to(torch.int32), wlive
-    )
-    mirror_rows = torch.cat(
-        [stage_pts, travel_dist[cur_ts].expand(w)[:, None]], dim=1
-    )
-    hash_mirror = scatter_set(state.hash_mirror.clone(), stage_h, mirror_rows, wlive)
+    hash_table = scatter_set(own(state.hash_table), stage_h, new_idx_w.to(torch.int32), wlive)
+    mirror_rows = torch.cat([stage_pts, cur_td.expand(w)[:, None]], dim=1)
+    hash_mirror = scatter_set(own(state.hash_mirror), stage_h, mirror_rows, wlive)
 
     new_ratio = n_new / torch.clamp(m_total, min=1)
+    count = torch.clamp(state.count + n_new, max=cap).to(torch.int32)
+    if inplace:
+        count = state.count.copy_(count)
     new_state = replace(
         state,
         positions=positions,
         ts_create=ts_create,
         ts_update=ts_update,
-        count=torch.clamp(state.count + n_new, max=cap).to(torch.int32),
+        count=count,
         hash_table=hash_table,
         hash_mirror=hash_mirror,
     )
@@ -360,13 +369,13 @@ def accumulate_certainty(
     tgt = torch.where(valid, knn_idx, torch.full_like(knn_idx, cap)).reshape(-1)
     w = torch.where(valid, weights, torch.zeros_like(weights)).reshape(-1)
     certainty = segment_add(state.certainty, tgt, w)
-    certainty[cap] = 0.0
+    certainty[cap].fill_(0.0)  # a fill on the device (a Python scalar assigned is copied)
     ts_update = state.ts_update
     if query_ts is not None:
         ts_rep = query_ts.to(torch.int32)[:, None].expand(knn_idx.shape)
         ts_rep = torch.where(valid, ts_rep, torch.zeros_like(ts_rep)).reshape(-1)
         ts_update = ts_update.scatter_reduce(0, tgt, ts_rep, "amax")
-        ts_update[cap] = 0
+        ts_update[cap].fill_(0)
     return replace(state, certainty=certainty, ts_update=ts_update)
 
 
@@ -377,7 +386,7 @@ def query_certainty_max(
     max_valid_dist2,
 ) -> torch.Tensor:
     """Max neighbor certainty over the 1-cell neighborhood."""
-    nb = torch.from_numpy(neighbor_offsets(1, 0.0)).to(points.device)
+    nb = _one_cell_offsets(points.device)
     _, h, valid, _ = neighborhood_probe(state, points, nb, resolution, max_valid_dist2)
     cap = map_capacity(state)
     idx = state.hash_table[h].to(torch.int64)

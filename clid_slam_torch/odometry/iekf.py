@@ -36,6 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import on_device
 from ..models import decoder as dec
 from ..models import neural_map as nm
 from ..ops.gather import gather_lanes
@@ -650,13 +651,13 @@ def make_cached_update_fn(
     P_new, ok, n_iter)."""
     loop_kw = _loop_kw(max_iteration, term_thre_deg, term_thre_m, eps, min_valid_ratio,
                        stagnation_iter)
-    offs_t = torch.as_tensor(nb_offs)
+    offs_t = on_device(torch.as_tensor(nb_offs))
 
     def build_candidates(map_state, points_imu, rot0, pos0, travel_dist, cur_ts, window):
         cap = nm.map_capacity(map_state)
         pc0 = points_imu @ rot0.T + pos0
         d2, h, pvalid, mir = nm.neighborhood_probe(
-            map_state, pc0, offs_t.to(pc0.device), resolution, max_valid_dist2,
+            map_state, pc0, offs_t(pc0.device), resolution, max_valid_dist2,
             travel_dist, cur_ts, window, True,
         )
         d2s = torch.where(pvalid, d2, torch.full_like(d2, 9e3))

@@ -10,6 +10,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import on_device
+
 
 def positional_scales(num_bands: int, freq: float, base: float) -> np.ndarray:
     """Log-spaced scales: logspace(0, log_base(freq/2), bands, base)."""
@@ -56,24 +58,11 @@ def make_encoder(
     if num_bands <= 0:
         return None, input_dim
     if use_gaussian:
-        B = _on_device(torch.from_numpy(
+        B = on_device(torch.from_numpy(
             gaussian_fourier_matrix(num_bands, freq, input_dim, seed)
         ))
         return (lambda x: gaussian_fourier_encode(x, B(x.device))), input_dim + 2 * num_bands
-    scales = _on_device(torch.from_numpy(positional_scales(num_bands, freq, base)))
+    scales = on_device(torch.from_numpy(positional_scales(num_bands, freq, base)))
     return (
         lambda x: positional_encode(x, scales(x.device), input_dim)
     ), input_dim * (2 * num_bands + 1)
-
-
-def _on_device(t: torch.Tensor) -> Callable[[torch.device], torch.Tensor]:
-    """``t`` on a given device, copied there at the first call for it: later
-    calls copy nothing, so a CUDA graph can hold the encoding."""
-    copies = {}
-
-    def on(device):
-        if device not in copies:
-            copies[device] = t.to(device)
-        return copies[device]
-
-    return on

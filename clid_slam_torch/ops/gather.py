@@ -22,10 +22,16 @@ so the launch path is kept short: the module's entry points take plain ints
 ``torch._C._cuda_getCurrentRawStream``, a CUDA build's own accessor, so no
 ``Stream`` object is made per call) in one METH_FASTCALL call, cheaper than
 ctypes' argument conversion, and the checks are those the kernels need.
+
+Inside ``with breaks(fn):`` each ``gather_rows`` call on the card goes to
+``fn(table, idx)`` and launches nothing. A CUDA graph's capture uses it to
+leave the hand kernel out of the graph: it ends the graph there, and its
+replays run the gather eagerly between two pieces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -35,11 +41,26 @@ from .scatter import segment_add
 
 # launches of each kernel (one per wrapper call on CUDA tensors)
 launches = {"gather_rows": 0, "gather_lanes": 0, "gather_cols": 0}
+# set by breaks(): called as _break(table, idx) in place of a row gather on the card
+_break = None
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+@contextlib.contextmanager
+def breaks(fn):
+    """Within the block, ``gather_rows`` on the card returns ``fn(table,
+    idx)`` and launches no kernel; the previous setting is restored on
+    leaving it."""
+    global _break
+    prev, _break = _break, fn
+    try:
+        yield
+    finally:
+        _break = prev
 
 
 _module = None  # the kernels' Python module (clid_gather), loaded at the first launch
@@ -107,6 +128,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_rows: the rows are empty")
     if not table.is_cuda:
         return gather_rows_reference(table, idx)
+    if _break is not None:
+        return _break(table, idx)
     wide = C % 4 == 0
     if wide and table.data_ptr() % 16 != 0:
         raise ValueError("gather_rows: the table is not 16-byte aligned")

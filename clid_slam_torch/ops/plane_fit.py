@@ -51,7 +51,7 @@ def sym3x3_min_eigvec(A: torch.Tensor, eigvals: torch.Tensor) -> torch.Tensor:
     onehot = best[..., None] == torch.arange(3, device=A.device)
     v = torch.sum(M * onehot[..., None, :], dim=-1)
     n = torch.linalg.norm(v, dim=-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    fallback = I[2]  # +z, made on the device
     return torch.where(
         n > 1e-12, v / torch.clamp(n, min=1e-12), fallback.expand(v.shape)
     )

@@ -25,26 +25,36 @@ def scatter_set(
 ) -> torch.Tensor:
     """In place ``dst[idx] = src`` along dim 0 with JAX's ``mode="drop"``
     (out-of-range indices, and rows where ``valid`` is False, are skipped)
-    and last-occurrence-wins for duplicate indices. Returns ``dst``."""
+    and last-occurrence-wins for duplicate indices. Returns ``dst``.
+
+    The work follows the m updates, not dst's rows: a stable sort of the
+    slots, each update's winner the last of its slot's run (a binary
+    search in the sorted slots), and one write a row. Skipped rows sort
+    after the kept ones, each on a slot of its own, and then repeat a
+    winner's write (or, with nothing kept, rewrite row 0 with itself), so
+    no slot takes a pile of writes and every write to a slot carries the
+    same row. Nothing is read on the host."""
     n, m = dst.shape[0], idx.shape[0]
+    if m == 0:
+        return dst
+    dev = idx.device
     idx = idx.to(torch.int64)
     inb = (idx >= 0) & (idx < n)
     if valid is not None:
         inb = inb & valid
-    tgt = torch.where(inb, idx, torch.zeros_like(idx))
-    pos = torch.arange(m, device=idx.device)
-    win = torch.full((n,), -1, dtype=torch.int64, device=idx.device)
-    win.scatter_reduce_(
-        0, tgt, torch.where(inb, pos, torch.full_like(pos, -1)), "amax",
-        include_self=True,
-    )
+    pos = torch.arange(m, device=dev)
+    key = torch.where(inb, idx, n + pos)
+    if n + m < 2**31:
+        key = key.to(torch.int32)  # a radix sort of half the bits
+    skey, order = torch.sort(key, stable=True)
+    last = torch.searchsorted(skey, skey, right=True) - 1
+    n_in = torch.sum(inb.to(torch.int64))
+    spare = torch.remainder(pos - n_in, torch.clamp(n_in, min=1))
+    writer = last[torch.where(pos < n_in, pos, spare)]
+    any_in = n_in > 0
+    tgt = torch.where(any_in, skey[writer].to(torch.int64), torch.zeros_like(pos))
     src = src.to(dst.dtype).expand((m,) + dst.shape[1:])
-    # skipped rows rewrite slot 0 with the value slot 0 ends up holding
-    w0 = win[0]
-    final0 = torch.where(w0 >= 0, src[w0.clamp(min=0)], dst[0])
-    rows = src[win[tgt].clamp(min=0)]
-    keep = inb.reshape((m,) + (1,) * (dst.dim() - 1))
-    vals = torch.where(keep, rows, final0)
+    vals = torch.where(any_in, src[order[writer]], dst[:1])
     dst.index_put_((tgt,), vals)
     return dst
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import scalar
+
 INT32_MAX = 2**31 - 1
 _M32 = 0xFFFFFFFF
 _P1, _P2, _P3 = 73856093, 19349669, 83492791
@@ -85,7 +87,7 @@ def voxel_down_sample_mask(
     center; invalid points never win nor survive. The resolution is carried
     as an f32 scalar so that every derived constant rounds as JAX's traced
     f32 arithmetic does (the keys must match bit for bit)."""
-    resolution = torch.as_tensor(resolution, dtype=torch.float32, device=points.device)
+    resolution = scalar(resolution, torch.float32, points.device)
     g = torch.floor(points / resolution)
     center = (g + 0.5) * resolution
     dist2 = torch.sum((points - center) ** 2, dim=-1)
@@ -104,7 +106,7 @@ def voxel_down_sample_min_value_mask(
 ) -> torch.Tensor:
     """Keep-mask selecting, per voxel, the point with the minimum ``value``
     (ties to the smaller index); invalid points never win nor survive."""
-    resolution = torch.as_tensor(resolution, dtype=torch.float32, device=points.device)
+    resolution = scalar(resolution, torch.float32, points.device)
     g = grid_coords(points, resolution)
     vmax = torch.max(torch.where(mask, value, torch.full_like(value, -torch.inf)))
     vmin = torch.min(torch.where(mask, value, torch.full_like(value, torch.inf)))

@@ -36,7 +36,12 @@ mapping loop, and a tracked frame on the autograd loop reads its step
 count once. Everything else stays on the device until ``sync()``, but the
 host still waits on the device where a step copies a host scalar or
 constant to it, checks a linalg result or indexes with a device scalar:
-the ``syncs`` counter below finds each such wait.
+the ``syncs`` counter below finds each such wait. On the card a tracked
+frame's map prep is a replay of CUDA graphs (``mapping/prep.py:
+GraphedPrep``, captured in ``precompile()`` or at the first tracked frame)
+that writes the map, the local map and the pool in place; prep, the
+adaptive step count and the fused kernel's mapping step wait for nothing.
+Frame 0, the CPU and injected ``draws`` run the eager prep.
 
 While torch's profiler records, ``process_frame`` runs under spans and
 counters (``utils/observability.py``; no setting, and one flag check a
@@ -53,7 +58,7 @@ ranges: ``frame.track.candidates``, ``frame.track.iter`` (one an IESEKF
 iteration), ``frame.prep.local_map``, ``frame.prep.sample``,
 ``frame.prep.insert``, ``frame.prep.pool`` and ``frame.map.cache``.
 Counters: ``frames``, ``track.iters``, ``map.steps`` and, on the card,
-``track.graph_iters``, ``track.graph_flops`` and ``syncs`` with
+``track.graph_iters``, ``track.graph_flops``, ``prep.graph_frames`` and ``syncs`` with
 ``syncs.<top-level range>`` and ``syncs.unspanned``.
 """
 
@@ -351,7 +356,7 @@ def adaptive_iters(cfg: Config, iters_base: int, new_count, cur_count, allow_res
     """The frame's mapping steps on the device (utils/mapper.py:446-459):
     ``iters_base`` moved by the share of new samples, 10 fewer on a stop,
     at least 1."""
-    iters = torch.tensor(iters_base, dtype=torch.int32, device=stop_status.device)
+    iters = torch.full((), iters_base, dtype=torch.int32, device=stop_status.device)
     if cfg.adaptive_iters and cfg.bs_new_sample > 0:
         ratio = new_count / torch.clamp(cur_count, min=1)
         offset = torch.where(
@@ -422,6 +427,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
     prep_bodies = {
         fp: prp.make_prep_fn(filter_pool_now=fp, **prep_kwargs(cfg)) for fp in (False, True)
     }
+    # a tracked frame's prep on the card: replays, captured at each variant's first call
+    graphed_prep = prp.GraphedPrep(prep_bodies, window)
     dyn_filter = None
     if cfg.dynamic_filter_on:
         # without layer_norm, as the JAX frame step builds it (ROADMAP C4)
@@ -523,12 +530,18 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                     filtered = torch.stack([before, torch.sum(train_mask.to(torch.int32))])
 
             with obs.span("frame.prep", fid):
-                res = prep_body(
-                    state.map_state, state.local_map, state.pool, points,
-                    train_mask & valid_mapping, pose, travel_dist, frame_id, window,
-                    generator=state.key, sample_draws=draws.get("sample"),
-                    append_uniform=draws.get("append"),
-                )
+                prep_mask = train_mask & valid_mapping
+                if track and points.is_cuda and not draws:
+                    res = graphed_prep(
+                        filter_pool_now, state.map_state, state.local_map, state.pool,
+                        points, prep_mask, pose, travel_dist, frame_id, state.key,
+                    )
+                else:
+                    res = prep_body(
+                        state.map_state, state.local_map, state.pool, points, prep_mask,
+                        pose, travel_dist, frame_id, window, generator=state.key,
+                        sample_draws=draws.get("sample"), append_uniform=draws.get("append"),
+                    )
 
             with obs.span("frame.iters", fid):
                 iters = adaptive_iters(cfg, iters_base, res.new_sample_count,
@@ -835,15 +848,16 @@ class StreamingSlam:
                 end.record()
             self.ba_log.append((frame_id, start, end))
 
-        # prune cadence (no host read)
+        # prune cadence (no host read); the log keeps copies of the counts,
+        # as the prep graphs write the map's count in place at a later frame
         if cfg.prune_map_on and (frame_id + 1) % cfg.prune_freq_frame == 0:
-            before = self.state.map_state.count
+            before = self.state.map_state.count.clone()
             pruned = nm.prune_and_rehash(
                 self.state.map_state, cfg.max_prune_certainty,
                 self.state.travel_dist, frame_id, cfg.diff_travel_dist_local,
                 cfg.voxel_size_m,
             )
-            self.prune_log.append((frame_id, before, pruned.count))
+            self.prune_log.append((frame_id, before, pruned.count.clone()))
             self.state = replace(self.state, map_state=pruned)
         self.processed = frame_id + 1
 

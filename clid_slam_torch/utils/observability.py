@@ -15,7 +15,8 @@ by ``StreamingSlam.process_frame``), ``track.iters`` (IESEKF iterations),
 tracker's CUDA graph, ``odometry/iekf.py``), ``track.graph_flops`` (those
 replays' operations, which the profiler cannot see: a replay dispatches no
 torch operation; counted when ``counters()`` is read, by one eager
-iteration run then),
+iteration run then), ``prep.graph_frames`` (tracked frames whose map prep
+ran as replays of its CUDA graphs, ``mapping/prep.py:GraphedPrep``),
 ``map.steps`` (mapping steps, a device scalar on the fused kernel's path,
 summed only when ``counters()`` is read) and, on a CUDA device, ``syncs``
 with ``syncs.<top-level span>`` and ``syncs.unspanned``: the host's waits on

@@ -10,7 +10,11 @@ without them; there, run it without the JAX conftest:
 
 The cached tracker's iterations, replayed from a CUDA graph, equal the
 eager loop on the card bit for bit: at each exit, with each option, across
-frames, and in a short stream.
+frames, and in a short stream. So does a tracked frame's map prep replayed
+from its CUDA graphs, against the eager prep, over frames of new inputs in
+each pool-filter variant and in a stream; its capture leaves the state and
+the generator as they were, and prep, the step count and the fused
+kernel's mapping step wait for nothing on the host.
 
 Tolerances: one Adam step rtol 1e-5 / atol 1e-6; n steps max diff < 3 lr
 (the t=1 Adam step is a sign function of the gradient, so elements whose
@@ -1221,3 +1225,211 @@ def test_tracker_graph_counts_the_operations_its_replays_hide(option, monkeypatc
     eager = _profiled_flops(lambda: eager_body.dense_update(*inputs))
     obs.reset_counters()
     assert hidden > 0 and eager <= seen + hidden < eager + 0.05 * hidden
+
+
+class _EagerPrep:
+    """Stands in for ``prep.GraphedPrep``: the eager prep on the card, the
+    graphs' reference."""
+
+    def __init__(self, preps, window):
+        self.preps, self.window = preps, window
+
+    def __call__(self, filter_pool_now, map_state, local_map, pool, points, mask, pose,
+                 travel_dist, frame_id, generator):
+        return self.preps[filter_pool_now](map_state, local_map, pool, points, mask, pose,
+                                           travel_dist, frame_id, self.window,
+                                           generator=generator)
+
+
+PREP_VARIANTS = {"no_filter": lambda i: False, "filter": lambda i: True,
+                 "alternating": lambda i: i % 2 == 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variants", sorted(PREP_VARIANTS))
+def test_prep_graph_equals_the_eager_prep_over_frames(variants):
+    """Five tracked frames of new inputs through one ``GraphedPrep`` and
+    through the eager prep, from the same state after frame 0: every
+    tensor of the result and the generator's state equal after each frame.
+    Between frames the map gets new certainty and stamp tensors, as the
+    mapping step makes (copied into the graphs' buffers), and free memory
+    is written over, so a graph that read a freed block would differ.
+    ``alternating`` captures its second variant while the buffers hold the
+    state of the first's replays."""
+    from clid_slam_torch.mapping import prep as prp
+    from clid_slam_torch.pipeline.streaming import clone_state
+    from torch_prep_frames import after_mapping, frame_inputs, preps, prep_leaves, small_system
+
+    _cuda()
+    system, seq = small_system("cuda")
+    pp = preps(system.cfg)
+    window = system.cfg.diff_travel_dist_local
+    graphed = prp.GraphedPrep(pp, window)
+    eager, mine = clone_state(system.state), clone_state(system.state)
+    e = [eager.map_state, eager.local_map, eager.pool]
+    g = [mine.map_state, mine.local_map, mine.pool]
+    for i in range(1, 6):
+        fp = PREP_VARIANTS[variants](i)
+        points, mask, pose, travel = frame_inputs(system, seq, i)
+        want = pp[fp](*e, points, mask, pose, travel, i, window, generator=eager.key)
+        given = [x.clone() for x in g[0].tensors() + g[1].tensors() + g[2].tensors()]
+        got = graphed(fp, *g, points, mask, pose, travel, i, mine.key)
+        if i == 1:  # the state given stays as it was: the graphs write their buffers
+            for x, y in zip(given, g[0].tensors() + g[1].tensors() + g[2].tensors()):
+                assert torch.equal(x, y)
+        for k, (x, y) in enumerate(zip(prep_leaves(got), prep_leaves(want))):
+            assert torch.equal(x, y), (i, k)
+        assert torch.equal(mine.key.get_state(), eager.key.get_state()), i
+        junk = torch.full((1 << 26,), float("nan"), device="cuda")
+        del junk
+        e = [after_mapping(want.map_state, i), want.local_map, want.pool]
+        g = [after_mapping(got.map_state, i), got.local_map, got.pool]
+    assert sorted(graphed.graphs) == sorted({PREP_VARIANTS[variants](i) for i in range(1, 6)})
+
+
+def _prep_frames(system, seq, frames):
+    for i in frames:
+        system.process_frame(i, seq.scans[i], seq.imu_windows[i])
+
+
+@pytest.mark.gpu
+def test_streaming_with_the_prep_graph_equals_the_eager_prep(monkeypatch):
+    """Six frames, the pool filtered every second frame so that both
+    variants run, with the prep graphs (captured in ``precompile()``) and
+    with the eager prep on the card: every state leaf and the generator's
+    state equal after every frame."""
+    from clid_slam_torch.mapping import prep as prp
+    from torch_prep_frames import N_FRAMES, small_system
+
+    _cuda()
+    graphed, seq = small_system("cuda", frame0=False, pool_filter_freq=2)
+    graphed.precompile()
+    with monkeypatch.context() as m:
+        m.setattr(prp, "GraphedPrep", _EagerPrep)
+        eager, _ = small_system("cuda", frame0=False, pool_filter_freq=2)
+    for i in range(N_FRAMES):
+        for system in (graphed, eager):
+            _prep_frames(system, seq, [i])
+        for k, (x, y) in enumerate(zip(graphed.state.leaves(), eager.state.leaves())):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), (i, k)
+            else:
+                assert torch.equal(x.get_state(), y.get_state()), (i, k)
+    assert int(graphed.sync()["insert_dropped"]) == int(eager.sync()["insert_dropped"])
+
+
+@pytest.mark.gpu
+def test_prep_capture_leaves_the_state_and_its_generator_as_they_were(monkeypatch):
+    """``precompile()`` captures both variants and changes no state leaf
+    and not the generator; a capture at a first call on the live state
+    changes neither the state given nor the generator beyond the frame's
+    own draws (the eager prep's, on a copy), and launches no gather kernel
+    beyond the replay's own (a second call launches as many)."""
+    from clid_slam_torch.mapping import prep as prp
+    from clid_slam_torch.ops import gather as gt
+    from clid_slam_torch.pipeline.streaming import clone_state
+    from torch_prep_frames import frame_inputs, preps, small_system
+
+    _cuda()
+    captured = []
+    capture = prp.GraphedPrep._capture
+    monkeypatch.setattr(prp.GraphedPrep, "_capture",
+                        lambda self, fp, *a: captured.append(fp) or capture(self, fp, *a))
+    system, seq = small_system("cuda")
+    before = clone_state(system.state)
+    system.precompile()
+    assert sorted(captured) == [False, True]
+    for x, y in zip(system.state.leaves(), before.leaves()):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        else:
+            assert torch.equal(x.get_state(), y.get_state())
+    pp = preps(system.cfg)
+    window = system.cfg.diff_travel_dist_local
+    st = system.state
+    copy = clone_state(st)
+    points, mask, pose, travel = frame_inputs(system, seq, 1)
+    graphed = prp.GraphedPrep(pp, window)
+    launched = gt.launches["gather_rows"]
+    res = graphed(True, st.map_state, st.local_map, st.pool, points, mask, pose, travel, 1,
+                  st.key)
+    first = gt.launches["gather_rows"] - launched
+    pp[True](copy.map_state, copy.local_map, copy.pool, points, mask, pose, travel, 1, window,
+             generator=copy.key)
+    assert torch.equal(st.key.get_state(), copy.key.get_state())
+    for x, y in zip(st.leaves(), before.leaves()):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+    launched = gt.launches["gather_rows"]
+    graphed(True, res.map_state, res.local_map, res.pool, points, mask, pose, travel, 1,
+            clone_state(st.key))
+    assert first == gt.launches["gather_rows"] - launched > 0
+
+
+@pytest.mark.gpu
+def test_a_tracked_frames_prep_iters_and_mapping_wait_for_nothing(monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` inside the
+    ``frame.prep``, ``frame.iters`` and ``frame.map`` ranges, a tracked
+    frame on the fused kernel's path raises nothing: no host read, no
+    blocking copy there."""
+    import contextlib
+
+    from clid_slam_torch.ops import map_loop as ml
+    from clid_slam_torch.utils import observability as obs
+    from torch_prep_frames import small_system
+
+    _cuda()
+    system, seq = small_system("cuda", frame0=False)
+    system.precompile()
+    _prep_frames(system, seq, [0, 1])
+    span = obs.span
+    strict = []
+
+    @contextlib.contextmanager
+    def strict_span(name, args=None):
+        if name not in ("frame.prep", "frame.iters", "frame.map"):
+            with span(name, args):
+                yield
+            return
+        strict.append(name)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(obs, "span", strict_span)
+    launches = ml.launches
+    _prep_frames(system, seq, [2, 3])
+    assert strict == ["frame.prep", "frame.iters", "frame.map"] * 2
+    assert ml.launches == launches + 2  # K1, once a tracked frame
+
+
+@pytest.mark.gpu
+def test_the_prune_log_keeps_its_counts_across_prep_replays(monkeypatch):
+    """The map is pruned every second frame and each next frame is tracked,
+    so the prep graphs write the map's count in place after every prune:
+    the counts the driver logged at each prune (``sync()["prunes"]``) equal
+    the eager prep's, and each count after a prune is the one read at that
+    frame."""
+    from clid_slam_torch.mapping import prep as prp
+    from torch_prep_frames import N_FRAMES, small_system
+
+    _cuda()
+    kw = dict(frame0=False, prune_map_on=True, prune_freq_frame=2)
+    graphed, seq = small_system("cuda", **kw)
+    graphed.precompile()
+    with monkeypatch.context() as m:
+        m.setattr(prp, "GraphedPrep", _EagerPrep)
+        eager, _ = small_system("cuda", **kw)
+    read = []
+    for i in range(N_FRAMES):
+        for system in (graphed, eager):
+            _prep_frames(system, seq, [i])
+        if (i + 1) % 2 == 0:
+            read.append(graphed.neural_point_count())
+    got, want = graphed.sync()["prunes"], eager.sync()["prunes"]
+    assert [f for f, _, _ in got] == [1, 3, 5]
+    assert got == want
+    assert [a for _, _, a in got] == read
+    assert all(0 < a <= b for _, b, a in got)

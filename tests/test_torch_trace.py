@@ -198,6 +198,11 @@ def test_no_graph_replays_are_counted_off_the_card(runs):
     assert runs.counters["track.iters"] > 0 and "track.graph_iters" not in runs.counters
 
 
+def test_no_prep_replays_are_counted_off_the_card(runs):
+    # CPU tensors take the eager prep
+    assert runs.counters["frames"] > 0 and "prep.graph_frames" not in runs.counters
+
+
 def test_tracing_changes_no_result(runs):
     a, b = runs.plain.state.leaves(), runs.traced.state.leaves()
     assert len(a) == len(b)
@@ -257,7 +262,8 @@ HOST = {"frame.ingest": 4.0, "frame.upload": 1.5, "frame.predict": 2.0, "frame.t
         "frame.prep.insert": 2.5, "frame.prep.pool": 4.5, "frame.iters": 0.5,
         "frame.map": 9.0, "frame.map.cache": 3.5, "ba": 7.0}
 COUNTS = {"frames": 10, "track.iters": 40, "track.graph_iters": 30,
-          "track.graph_flops": 300_000_000, "map.steps": 120, "syncs": 230}
+          "track.graph_flops": 300_000_000, "prep.graph_frames": 10, "map.steps": 120,
+          "syncs": 230}
 # reader -> its value from HOST and COUNTS (10 frames, a 60 ms frame)
 READINGS = {"ingest_ms": 4.0, "upload_ms": 1.5, "unspanned_ms": 60.0 - 50.0,
             "track_outside_ms": 5.0, "track_candidates_ms": 1.0, "track_iters": 4.0,
@@ -266,9 +272,9 @@ READINGS = {"ingest_ms": 4.0, "upload_ms": 1.5, "unspanned_ms": 60.0 - 50.0,
             "map_steps": 12.0, "host_syncs": 23.0, "track_graph_share": 0.75,
             # K1's 2e8 and the profiler's 1e8 operations (frame_mfu: 5 %), and
             # the replays' 3e8, over 0.6 s at 1e10 a second
-            "frame_mfu_with_replays": 10.0}
+            "frame_mfu_with_replays": 10.0, "prep_graph_share": 1.0}
 COUNTER_READERS = {"track_iters", "track_iter_ms", "map_steps", "host_syncs",
-                   "track_graph_share", "frame_mfu_with_replays"}
+                   "track_graph_share", "frame_mfu_with_replays", "prep_graph_share"}
 
 
 def _trace(stage_host_ms, frames=10, window_s=0.6):
@@ -304,6 +310,14 @@ def test_graph_share_reads_none_from_a_program_without_the_graph(monkeypatch):
     assert _reader("track_graph_share")(_trace(dict(HOST))) == 0.0
 
 
+def test_prep_graph_share_reads_none_from_a_program_without_the_prep_graphs(monkeypatch):
+    counts = {k: v for k, v in COUNTS.items() if k != "prep.graph_frames"}
+    monkeypatch.setattr(obs, "counters", lambda: counts)
+    assert _reader("prep_graph_share")(_trace(dict(HOST))) is None
+    monkeypatch.setattr(obs, "counters", lambda: dict(counts, **{"prep.graph_frames": 0}))
+    assert _reader("prep_graph_share")(_trace(dict(HOST))) == 0.0
+
+
 def test_mfu_with_replays_reads_none_from_a_program_without_the_graph(monkeypatch):
     # no replays counted: a program without the graph, which frame_mfu reads
     counts = {k: v for k, v in COUNTS.items() if k != "track.graph_flops"}
@@ -315,10 +329,16 @@ def test_mfu_with_replays_reads_none_from_a_program_without_the_graph(monkeypatc
 
 
 @pytest.mark.gpu
-def test_a_frame_on_the_card_counts_its_syncs():
+@pytest.mark.parametrize("precompiled", [False, True], ids=["captured_in_frame", "precompiled"])
+def test_a_frame_on_the_card_counts_its_syncs(precompiled):
+    """Without ``precompile()`` the traced frame captures the tracker's and
+    the prep's graphs; with it, they are captured before frame 0 and the
+    traced frame only replays them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     system, seq = _system(_config(), device="cuda")
+    if precompiled:
+        system.precompile()
     _frame(system, seq, 0)
     system.block()
     obs.reset_counters()
@@ -331,4 +351,7 @@ def test_a_frame_on_the_card_counts_its_syncs():
     assert torch.cuda.get_sync_debug_mode() == 0
     assert c["track.iters"] == c["track.graph_iters"] == int(system.sync()["track_iters"][1])
     assert c["track.graph_flops"] > 0 and c["track.graph_flops"] % c["track.graph_iters"] == 0
+    assert c["prep.graph_frames"] == 1
+    if precompiled:  # prep, the step count and K1's mapping step wait for nothing
+        assert not any(c.get(f"syncs.frame.{s}") for s in ("prep", "iters", "map"))
     obs.reset_counters()
