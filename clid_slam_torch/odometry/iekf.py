@@ -283,7 +283,8 @@ def _inclusive_scan(combine, xs):
 
 def device_predict_imu(rot, pos, vel, bg, ba, grav, P, Q, imu_rows, imu_count):
     """IMU forward propagation, f32. ``imu_rows`` is a fixed [K,7] (dt, acc,
-    gyro) buffer; rows at or past ``imu_count`` are exact identity steps."""
+    gyro) buffer; rows at or past ``imu_count`` (an int or an integer
+    device scalar) are exact identity steps."""
     K = imu_rows.shape[0]
     dev = imu_rows.device
     I3 = torch.eye(3, device=dev)

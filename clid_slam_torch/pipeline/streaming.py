@@ -37,11 +37,16 @@ count once. Everything else stays on the device until ``sync()``, but the
 host still waits on the device where a step copies a host scalar or
 constant to it, checks a linalg result or indexes with a device scalar:
 the ``syncs`` counter below finds each such wait. On the card a tracked
-frame's map prep is a replay of CUDA graphs (``mapping/prep.py:
-GraphedPrep``, captured in ``precompile()`` or at the first tracked frame)
-that writes the map, the local map and the pool in place; prep, the
-adaptive step count and the fused kernel's mapping step wait for nothing.
-Frame 0, the CPU and injected ``draws`` run the eager prep.
+frame's predict and bookkeep are one replay each of a CUDA graph
+(``GraphedTrackStages``; every value that changes from frame to frame
+enters through a device buffer filled before the replay) that writes the
+trajectory's row and the state's small leaves in place, and its map prep
+is a replay of CUDA graphs (``mapping/prep.py:GraphedPrep``) that writes
+the map, the local map and the pool in place; both are captured in
+``precompile()`` or at the first tracked frame. Predict, bookkeep, prep,
+the adaptive step count and the fused kernel's mapping step wait for
+nothing. Frame 0, the CPU and injected ``draws`` run the eager stages,
+with the frame's values in device scalars all the same.
 
 While torch's profiler records, ``process_frame`` runs under spans and
 counters (``utils/observability.py``; no setting, and one flag check a
@@ -58,8 +63,9 @@ ranges: ``frame.track.candidates``, ``frame.track.iter`` (one an IESEKF
 iteration), ``frame.prep.local_map``, ``frame.prep.sample``,
 ``frame.prep.insert``, ``frame.prep.pool`` and ``frame.map.cache``.
 Counters: ``frames``, ``track.iters``, ``map.steps`` and, on the card,
-``track.graph_iters``, ``track.graph_flops``, ``prep.graph_frames`` and ``syncs`` with
-``syncs.<top-level range>`` and ``syncs.unspanned``.
+``track.graph_iters``, ``track.graph_flops``, ``predict.graph_frames``,
+``prep.graph_frames`` and ``syncs`` with ``syncs.<top-level range>`` and
+``syncs.unspanned``.
 """
 
 from __future__ import annotations
@@ -68,13 +74,14 @@ import functools
 import os
 import warnings
 from dataclasses import dataclass, fields, is_dataclass, replace
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import Config
-from ..device import resolve_device
+from ..device import resolve_device, scalar
 from ..mapping import mapper as mp
 from ..mapping import pool as pl
 from ..mapping import prep as prp
@@ -232,6 +239,12 @@ def _pose(rot, pos):
     return T
 
 
+def _inv(T):
+    """``torch.linalg.inv(T)`` without its error check, which waits for the
+    device (``inv`` is ``inv_ex`` and that check)."""
+    return torch.linalg.inv_ex(T)[0]
+
+
 def _max_valid_dist2(cfg: Config) -> float:
     return 3.0 * ((cfg.num_nei_cells + 1) * cfg.voxel_size_m) ** 2
 
@@ -300,9 +313,10 @@ def prep_kwargs(cfg: Config) -> dict:
     )
 
 
-def predict_imu(cfg: Config, rot, pos, rest, P, imu_rows, imu_count: int):
+def predict_imu(cfg: Config, rot, pos, rest, P, imu_rows, imu_count):
     """The IESEKF's IMU propagation over a frame's rows on the device:
-    (rot, pos, rest, P) after it."""
+    (rot, pos, rest, P) after it; ``imu_count``, the live rows, an int or
+    a device scalar."""
     f32 = dict(dtype=torch.float32, device=rot.device)
     Q = torch.zeros((12, 12), **f32)
     I3 = torch.eye(3, **f32)
@@ -334,7 +348,7 @@ def track_bookkeeping(cfg: Config, state: StreamState, pose, ok):
     """The stop, lose-track and failure flags after a tracked frame at
     ``pose``: (stop_count, stop_status, lose_track, consec_lose, failed,
     the relative transform from the last pose, its translation norm)."""
-    last_tran = torch.linalg.inv(state.last_pose) @ pose
+    last_tran = _inv(state.last_pose) @ pose
     tran_norm = torch.linalg.norm(last_tran[:3, 3])
     I3 = torch.eye(3, device=pose.device)
     near_I = torch.all(torch.abs(last_tran[:3, :3] - I3) < 1e-3) & torch.all(
@@ -375,6 +389,229 @@ def adaptive_iters(cfg: Config, iters_base: int, new_count, cur_count, allow_res
         iters = iters + offset
     iters = torch.where(stop_status, iters - 10, iters)
     return torch.clamp(iters, min=1)
+
+
+# the state's leaves that frame.predict and frame.bookkeep read or write
+TRACK_LEAVES = ("rot", "pos", "rest", "P", "last_pose", "odom_poses", "travel_dist",
+                "lose_track", "consec_lose", "stop_count", "stop_status", "failed",
+                "track_iters")
+_SCAN = ("points", "pmask", "point_ts", "imu_rows")  # a frame's scan and IMU rows
+
+
+def predict_stage(cfg: Config, f, track: bool):
+    """``frame.predict`` on a frame ``f``, a namespace of tensors: the scan
+    (``points``, ``pmask``, ``point_ts``), ``imu_rows``, the device scalars
+    ``crop`` (f32, the crop range) and ``imu_count`` (i64), and the state's
+    ``TRACK_LEAVES``. Sets ``f.train_mask`` (the crop and the training
+    voxel keep-mask) and, when tracking, ``f.pred`` (rot, pos, rest, P
+    after the IMU propagation) and the tracker's source points
+    ``f.src_pts`` (deskewed with ``cfg.deskew``) and ``f.smask``. No value
+    of the frame enters as a Python number, so one CUDA graph of it serves
+    every frame."""
+    pmask = f.pmask & crop_mask(f.points, cfg.min_z, cfg.max_z, cfg.min_range, f.crop)
+    scale = f.crop / cfg.max_range
+    f.train_mask = voxel_down_sample_mask(f.points, pmask, scale * cfg.vox_down_m,
+                                          cfg.map_hash_size)
+    if not track:
+        return
+    rot, pos, rest, P = predict_imu(cfg, f.rot, f.pos, f.rest, f.P, f.imu_rows, f.imu_count)
+    src_idx, f.smask = source_indices(cfg, f.points, f.train_mask, scale)
+    src_pts = f.points[src_idx]
+    if cfg.deskew:
+        rel = _inv(f.last_pose) @ _pose(rot, pos)
+        src_pts = deskew(src_pts, f.point_ts[src_idx], rel)
+    f.pred, f.src_pts = (rot, pos, rest, P), src_pts
+
+
+def bookkeep_stage(cfg: Config, f, track: bool):
+    """``frame.bookkeep`` on a frame ``f`` after ``predict_stage``, with its
+    row ``f.fid`` (a [1] i64 device index) and, when tracking, ``f.trk``,
+    the tracker's (rot, pos, rest, P, ok, n_iter). Writes that row of
+    ``f.odom_poses``, ``f.travel_dist`` and, when tracking,
+    ``f.track_iters`` in place, and sets ``f.new`` (the state's
+    ``TRACK_LEAVES`` after the frame), ``f.map_points`` (the points the
+    map trains on, deskewed where it trains with ``cfg.deskew``) and
+    ``f.valid_mapping``."""
+    prev = torch.clamp(f.fid - 1, min=0)
+    new = {k: getattr(f, k) for k in TRACK_LEAVES}
+    f.map_points = f.points
+    if track:
+        rot, pos, rest, P, ok, n_iter = f.trk
+        rot = _orthonormalize(rot)
+        f.track_iters.index_copy_(0, f.fid, n_iter.reshape(1).to(f.track_iters.dtype))
+        pose = _pose(rot, pos)
+        (stop_count, stop_status, lose_track, consec_lose, failed, last_tran,
+         tran_norm) = track_bookkeeping(cfg, f, pose, ok)
+        f.travel_dist.index_copy_(0, f.fid, f.travel_dist.index_select(0, prev) + tran_norm)
+        new.update(rot=rot, pos=pos, rest=rest, P=P, stop_count=stop_count,
+                   stop_status=stop_status, lose_track=lose_track, consec_lose=consec_lose,
+                   failed=failed)
+        if cfg.deskew:
+            full = deskew(f.points, f.point_ts, last_tran)
+            f.map_points = torch.where(f.train_mask[:, None], full, f.points)
+    else:
+        pose = _pose(f.rot, f.pos)
+        f.travel_dist.index_copy_(0, f.fid, f.travel_dist.index_select(0, prev))
+    f.odom_poses.index_copy_(0, f.fid, pose[None])
+    new["last_pose"] = pose
+    f.new = new
+    # map prep is gated by tracking validity (a lost or stopped frame must
+    # not corrupt the map)
+    f.valid_mapping = ~new["lose_track"] & ~new["stop_status"]
+
+
+def eager_frame(state: StreamState, frame_id: int, points, pmask, point_ts, imu_rows,
+                imu_count: int, crop_max_range: float, track: bool) -> SimpleNamespace:
+    """A frame for the stages run eagerly: the frame's values filled into
+    device scalars on the device (no host copy to wait for), the state's
+    leaves, and copies of the arrays whose row the frame writes."""
+    dev = points.device
+    f = SimpleNamespace(
+        points=points, pmask=pmask, point_ts=point_ts, imu_rows=imu_rows,
+        crop=scalar(crop_max_range, torch.float32, dev),
+        imu_count=scalar(imu_count, torch.int64, dev),
+        fid=torch.full((1,), frame_id, dtype=torch.int64, device=dev),
+        **{k: getattr(state, k) for k in TRACK_LEAVES},
+    )
+    for k in ("odom_poses", "travel_dist") + (("track_iters",) if track else ()):
+        setattr(f, k, getattr(f, k).clone())
+    return f
+
+
+def _like(x):
+    """A copy of ``x`` with its shape and strides (a strided view of the
+    upload gets a buffer strided as it is)."""
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
+
+
+def _graph(stage, mem) -> torch.cuda.CUDAGraph:
+    """``stage()`` captured as a CUDA graph in the memory pool ``mem``;
+    thread-local, as the tracker's graph (another thread's CUDA call
+    neither fails nor invalidates it)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=mem, capture_error_mode="thread_local"):
+        stage()
+    return graph
+
+
+class GraphedTrackStages:
+    """A tracked frame's ``frame.predict`` and ``frame.bookkeep`` on the
+    card: one replay each of a CUDA graph of ``predict_stage`` and of
+    ``bookkeep_stage``, which compute what the eager stages do, to the bit
+    (the same kernels on the same layouts), and read nothing on the host.
+
+    The graphs are captured at the first call for a key of the inputs'
+    shapes, strides, dtypes and device (``StreamingSlam.precompile()``
+    makes it): a warm-up on a side stream, then both graphs in one memory
+    pool, in the order they replay. A capture leaves the state it is given
+    as it was (the graphs work on buffers of their own; nothing here draws
+    from a generator).
+
+    Everything that changes from frame to frame enters through a buffer
+    written before the replay: the scan and the IMU rows (copied into
+    buffers strided as the upload's views), the crop range, the IMU count
+    and the frame id (filled on the device), the state's
+    ``TRACK_LEAVES`` (copied in where the state holds other tensors), and
+    the tracker's outputs (copied in before bookkeep). Bookkeep writes the
+    frame's rows of the trajectory, the travel distances and the iteration
+    counts, and the state's other leaves, in place into the state's
+    buffers, after its last read of them; the returned frame's ``new``
+    holds those buffers. So an older state that holds other tensors (a
+    clone, an eager frame's, a checkpoint's, a BA's) stays as it was, and
+    a state that came out of a call is written over by the next.
+
+    A replay dispatches no operation for a profiler to count: while
+    tracing, each frame counts its stages' operations in
+    ``track.graph_flops``, those of one eager run on copies of the
+    buffers, counted when the counters are read (``odometry/iekf.py:
+    flops_of``)."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+        self.frames = {}  # the inputs' key -> the frame namespace its graphs work on
+
+    def predict(self, state: StreamState, frame_id: int, points, pmask, point_ts, imu_rows,
+                imu_count: int, crop_max_range: float) -> SimpleNamespace:
+        """Replay ``frame.predict``: the returned frame holds its outputs
+        (see ``predict_stage``) until the next call."""
+        scan = (points, pmask, point_ts, imu_rows)
+        leaves = [getattr(state, k) for k in TRACK_LEAVES]
+        key = tuple((x.shape, x.stride(), x.dtype, x.device) for x in (*scan, *leaves))
+        f = self.frames.get(key)
+        if f is None:
+            f = self.frames[key] = self._capture(scan, leaves)
+        for x, buf in zip(leaves, f.bufs.values()):
+            if x is not buf:
+                buf.copy_(x)
+        for k, x in zip(_SCAN, scan):
+            getattr(f, k).copy_(x)
+        f.crop.fill_(crop_max_range)
+        f.imu_count.fill_(imu_count)
+        f.fid.fill_(frame_id)
+        f.graphs[0].replay()
+        return f
+
+    def bookkeep(self, f: SimpleNamespace, trk):
+        """Replay ``frame.bookkeep`` of the frame ``predict`` returned, after
+        the tracker's ``trk`` (rot, pos, rest, P, ok, n_iter)."""
+        for buf, x in zip(f.trk, trk):
+            buf.copy_(x)
+        f.graphs[1].replay()
+        obs.count("predict.graph_frames")
+        obs.count("track.graph_flops", f.flops)
+
+    def _capture(self, scan, leaves) -> SimpleNamespace:
+        cfg = self.cfg
+        dev = scan[0].device
+        state = {k: _like(x) for k, x in zip(TRACK_LEAVES, leaves)}
+        inputs = dict(
+            zip(_SCAN, [_like(x) for x in scan]), **state,
+            crop=torch.full((), cfg.max_range, dtype=torch.float32, device=dev),
+            imu_count=torch.zeros((), dtype=torch.int64, device=dev),
+            fid=torch.ones(1, dtype=torch.int64, device=dev),
+            trk=[state[k].clone() for k in ("rot", "pos", "rest", "P")] + [
+                torch.ones((), dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev)],
+        )
+        f = SimpleNamespace(**inputs, bufs=state)
+
+        def predict():
+            predict_stage(cfg, f, True)
+
+        def bookkeep():
+            bookkeep_stage(cfg, f, True)
+            for k, buf in state.items():  # after the stage's last read of the state
+                if f.new[k] is not buf:
+                    buf.copy_(f.new[k])
+
+        with torch.cuda.device(dev):
+            # cuBLAS's per-stream workspaces cleared around each phase, as
+            # for the tracker's graph (odometry/iekf.py:_GraphedIterations)
+            torch._C._cuda_clearCublasWorkspaces()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                predict()
+                bookkeep()
+            torch.cuda.current_stream().wait_stream(side)
+            torch._C._cuda_clearCublasWorkspaces()
+            mem = torch.cuda.graph_pool_handle()
+            f.graphs = (_graph(predict, mem), _graph(bookkeep, mem))
+            torch._C._cuda_clearCublasWorkspaces()
+        f.new = state  # what the step reads after a replay
+        counted = []
+
+        def flops() -> int:
+            if not counted:
+                g = SimpleNamespace(**{k: v.clone() if isinstance(v, torch.Tensor)
+                                       else [t.clone() for t in v] for k, v in inputs.items()})
+                with torch.cuda.device(dev):
+                    counted.append(sum(iekf.flops_of(lambda: (
+                        predict_stage(cfg, g, True), bookkeep_stage(cfg, g, True))).values()))
+            return counted[0]
+
+        f.flops = flops
+        return f
 
 
 def make_frame_step(cfg: Config, nb_offs, encode_vecs):
@@ -429,6 +666,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
     }
     # a tracked frame's prep on the card: replays, captured at each variant's first call
     graphed_prep = prp.GraphedPrep(prep_bodies, window)
+    # a tracked frame's predict and bookkeep on the card: replays, shared by the variants
+    graphed_track = GraphedTrackStages(cfg)
     dyn_filter = None
     if cfg.dynamic_filter_on:
         # without layer_norm, as the JAX frame step builds it (ROADMAP C4)
@@ -467,54 +706,29 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             state's generator."""
             draws = draws or {}
             fid = str(frame_id)
+            # on the card a tracked frame replays predict's and bookkeep's graphs
+            graphed = track and points.is_cuda and not draws
+            frame = (state, frame_id, points, pmask, point_ts, imu_rows, imu_count,
+                     crop_max_range)
             with obs.span("frame.predict", fid):
-                crop = torch.tensor(crop_max_range, dtype=torch.float32, device=points.device)
-                pmask = pmask & crop_mask(points, cfg.min_z, cfg.max_z, cfg.min_range, crop)
-                scale = crop / cfg.max_range
-                train_mask = voxel_down_sample_mask(
-                    points, pmask, scale * cfg.vox_down_m, cfg.map_hash_size
-                )
-                rot, pos, rest, P = state.rot, state.pos, state.rest, state.P
-                odom_poses = state.odom_poses.clone()
-                travel_dist = state.travel_dist.clone()
-                lose_track, consec_lose = state.lose_track, state.consec_lose
-                stop_count, stop_status = state.stop_count, state.stop_status
-                failed = state.failed
-                track_iters = state.track_iters
-                if track:
-                    rot, pos, rest, P = predict_imu(cfg, rot, pos, rest, P, imu_rows, imu_count)
-                    src_idx, smask = source_indices(cfg, points, train_mask, scale)
-                    src_pts = points[src_idx]
-                    if cfg.deskew:
-                        rel = torch.linalg.inv(state.last_pose) @ _pose(rot, pos)
-                        src_pts = deskew(src_pts, point_ts[src_idx], rel)
-
+                if graphed:
+                    f = graphed_track.predict(*frame)
+                else:
+                    f = eager_frame(*frame, track)
+                    predict_stage(cfg, f, track)
+            trk = None
             if track:
                 with obs.span("frame.track", fid):
-                    rot, pos, rest, P, ok, n_iter = update(
-                        state.map_state, state.mlp, src_pts, smask,
-                        rot, pos, rest, P, travel_dist, frame_id, window,
-                    )
+                    trk = update(state.map_state, state.mlp, f.src_pts, f.smask, *f.pred,
+                                 f.travel_dist, frame_id, window)
             with obs.span("frame.bookkeep", fid):
-                if track:
-                    rot = _orthonormalize(rot)
-                    track_iters = track_iters.clone()
-                    track_iters[frame_id] = n_iter
-                    pose = _pose(rot, pos)
-                    (stop_count, stop_status, lose_track, consec_lose, failed, last_tran,
-                     tran_norm) = track_bookkeeping(cfg, state, pose, ok)
-                    travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)] + tran_norm
-                    odom_poses[frame_id] = pose
-                    if cfg.deskew:
-                        full = deskew(points, point_ts, last_tran)
-                        points = torch.where(train_mask[:, None], full, points)
+                if graphed:
+                    graphed_track.bookkeep(f, trk)
                 else:
-                    pose = _pose(rot, pos)
-                    odom_poses[frame_id] = pose
-                    travel_dist[frame_id] = travel_dist[max(frame_id - 1, 0)]
-                # map prep is gated by tracking validity (a lost or stopped
-                # frame must not corrupt the map)
-                valid_mapping = ~lose_track & ~stop_status
+                    f.trk = trk
+                    bookkeep_stage(cfg, f, track)
+            points, train_mask, pose = f.map_points, f.train_mask, f.new["last_pose"]
+            travel_dist = f.new["travel_dist"]
 
             # dynamic-object filter (slam.py:170-176: tracked frames only):
             # drop measurements landing in confidently observed free space
@@ -530,8 +744,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
                     filtered = torch.stack([before, torch.sum(train_mask.to(torch.int32))])
 
             with obs.span("frame.prep", fid):
-                prep_mask = train_mask & valid_mapping
-                if track and points.is_cuda and not draws:
+                prep_mask = train_mask & f.valid_mapping
+                if graphed:
                     res = graphed_prep(
                         filter_pool_now, state.map_state, state.local_map, state.pool,
                         points, prep_mask, pose, travel_dist, frame_id, state.key,
@@ -545,7 +759,8 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
 
             with obs.span("frame.iters", fid):
                 iters = adaptive_iters(cfg, iters_base, res.new_sample_count,
-                                       res.cur_sample_count, allow_restart, stop_status)
+                                       res.cur_sample_count, allow_restart,
+                                       f.new["stop_status"])
 
             map_fn = mapping_body_fast if track else mapping_body
             with obs.span("frame.map", fid):
@@ -557,14 +772,9 @@ def make_frame_step(cfg: Config, nb_offs, encode_vecs):
             losses = state.losses.clone()
             losses[frame_id] = loss2
             new_state = replace(
-                state,
-                rot=rot, pos=pos, rest=rest, P=P, last_pose=pose,
-                odom_poses=odom_poses, travel_dist=travel_dist,
-                lose_track=lose_track, consec_lose=consec_lose,
-                stop_count=stop_count, stop_status=stop_status, failed=failed,
+                state, **f.new,
                 map_state=map_state, local_map=res.local_map, pool=res.pool,
                 mlp=mlp, color_mlp=color_mlp, sem_mlp=sem_mlp, losses=losses,
-                track_iters=track_iters,
             )
             return new_state, res.insert_dropped, filtered
 

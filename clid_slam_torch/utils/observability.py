@@ -15,7 +15,11 @@ by ``StreamingSlam.process_frame``), ``track.iters`` (IESEKF iterations),
 tracker's CUDA graph, ``odometry/iekf.py``), ``track.graph_flops`` (those
 replays' operations, which the profiler cannot see: a replay dispatches no
 torch operation; counted when ``counters()`` is read, by one eager
-iteration run then), ``prep.graph_frames`` (tracked frames whose map prep
+iteration run then, and the replayed predict and bookkeep stages'
+operations, one eager run of them counted then),
+``predict.graph_frames`` (tracked frames whose predict and bookkeep both
+ran as replays of their CUDA graphs, ``pipeline/streaming.py:
+GraphedTrackStages``), ``prep.graph_frames`` (tracked frames whose map prep
 ran as replays of its CUDA graphs, ``mapping/prep.py:GraphedPrep``),
 ``map.steps`` (mapping steps, a device scalar on the fused kernel's path,
 summed only when ``counters()`` is read) and, on a CUDA device, ``syncs``

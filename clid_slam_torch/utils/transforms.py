@@ -6,7 +6,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import on_device
 from .lie import quat_slerp, quat_to_rotmat, rotmat_to_quat
+
+_Q_ID = on_device(torch.tensor([1.0, 0.0, 0.0, 0.0]))  # the identity quaternion, wxyz
 
 
 def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -36,9 +39,8 @@ def deskew(
     ts = ts - ts_mid_pose
     n = points.shape[0]
     q_rel = rotmat_to_quat(rel_pose[:3, :3])
-    q_id = torch.tensor(
-        [1.0, 0.0, 0.0, 0.0], dtype=points.dtype, device=points.device
-    )
+    # copied to the device once, so that a frame's deskew waits for nothing
+    q_id = _Q_ID(points.device).to(points.dtype)
     q_t = quat_slerp(q_id.expand(n, 4), q_rel.expand(n, 4), ts[:, None])
     R_t = quat_to_rotmat(q_t)  # [N,3,3]
     tran = ts[:, None] * rel_pose[:3, 3]

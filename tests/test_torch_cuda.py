@@ -14,7 +14,11 @@ frames, and in a short stream. So does a tracked frame's map prep replayed
 from its CUDA graphs, against the eager prep, over frames of new inputs in
 each pool-filter variant and in a stream; its capture leaves the state and
 the generator as they were, and prep, the step count and the fused
-kernel's mapping step wait for nothing on the host.
+kernel's mapping step wait for nothing on the host. A tracked frame's
+predict and bookkeep replayed from their CUDA graphs equal the eager stages
+bit for bit over frames whose crop range, IMU rows and id change, captured
+at the first tracked frame or in ``precompile()``; they wait for nothing,
+leave earlier states as they were and count the operations they hide.
 
 Tolerances: one Adam step rtol 1e-5 / atol 1e-6; n steps max diff < 3 lr
 (the t=1 Adam step is a sign function of the gradient, so elements whose
@@ -1433,3 +1437,226 @@ def test_the_prune_log_keeps_its_counts_across_prep_replays(monkeypatch):
     assert got == want
     assert [a for _, _, a in got] == read
     assert all(0 < a <= b for _, b, a in got)
+
+
+class _EagerTrackStages:
+    """Stands in for ``streaming.GraphedTrackStages``: a tracked frame's
+    predict and bookkeep run eagerly on the card, the graphs' reference."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def predict(self, *frame):
+        from clid_slam_torch.pipeline import streaming as sm
+
+        f = sm.eager_frame(*frame, True)
+        sm.predict_stage(self.cfg, f, True)
+        return f
+
+    def bookkeep(self, f, trk):
+        from clid_slam_torch.pipeline import streaming as sm
+
+        f.trk = trk
+        sm.bookkeep_stage(self.cfg, f, True)
+
+
+def _recording(cls, log):
+    """``cls`` with copies of every output of each call appended to ``log``:
+    predict's masks, IMU propagation and source points, then bookkeep's
+    points, validity and the state's leaves after the frame."""
+
+    class Recording(cls):
+        def predict(self, *frame):
+            f = super().predict(*frame)
+            log.append([x.clone() for x in (f.train_mask, *f.pred, f.src_pts, f.smask)])
+            return f
+
+        def bookkeep(self, f, trk):
+            super().bookkeep(f, trk)
+            log.append([x.clone() for x in (f.map_points, f.valid_mapping, *f.new.values())])
+
+    return Recording
+
+
+def _assert_same_states(a, b, where):
+    for k, (x, y) in enumerate(zip(a.state.leaves(), b.state.leaves())):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), (where, k)
+        else:
+            assert torch.equal(x.get_state(), y.get_state()), (where, k)
+    counts = lambda s: [(f, int(n), int(m)) for f, n, m in s.filter_log]
+    assert counts(a) == counts(b), where
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("capture", ["first_tracked_frame", "precompile"])
+def test_track_graphs_equal_the_eager_stages_over_frames(capture, monkeypatch):
+    """Eight frames on quad's switches (the adaptive crop range, the
+    dynamic filter, deskew, the rotated ``T_imu_lidar``; ``torch_track_
+    frames.py``) whose crop range, IMU rows (none, 4, 16, 32, the whole
+    64-row bucket) and id change from frame to frame, with predict and
+    bookkeep replayed from their graphs and run eagerly on the card: every
+    output of both stages, every state leaf (the rows written included),
+    the generator and the filter's kept counts equal after every frame. The
+    graphs are captured at the first tracked frame, or in ``precompile()``
+    on its frame (``max_range``, no IMU rows, frame 1), which no frame
+    here repeats: a value frozen in a capture differs."""
+    import torch_track_frames as tf
+    from clid_slam_torch.pipeline import streaming as sm
+    from clid_slam_torch.utils.transforms import adaptive_crop_range
+
+    _cuda()
+    logs = {"graphed": [], "eager": []}
+    systems = {}
+    for name, cls in (("graphed", sm.GraphedTrackStages), ("eager", _EagerTrackStages)):
+        with monkeypatch.context() as m:
+            m.setattr(sm, "GraphedTrackStages", _recording(cls, logs[name]))
+            systems[name], fr = tf.system("cuda")
+        if capture == "precompile":
+            systems[name].precompile()
+            logs[name].clear()
+    graphed, eager = systems["graphed"], systems["eager"]
+    for i in range(tf.N_FRAMES):
+        tf.run(graphed, fr, [i])
+        tf.run(eager, fr, [i])
+        _assert_same_states(graphed, eager, i)
+    assert len(logs["graphed"]) == len(logs["eager"]) == 2 * (tf.N_FRAMES - 1)
+    for j, (got, want) in enumerate(zip(logs["graphed"], logs["eager"])):
+        for k, (x, y) in enumerate(zip(got, want)):
+            assert torch.equal(x, y), (j, k)
+    crops = {adaptive_crop_range(p @ tf.T_IMU_LIDAR[:3, :3].T + tf.T_IMU_LIDAR[:3, 3],
+                                 graphed.cfg.max_range) for p, _, _ in fr[1:]}
+    assert len(crops) == tf.N_FRAMES - 1 and max(crops) < graphed.cfg.max_range
+    assert len(graphed.filter_log) == tf.N_FRAMES - 1
+
+
+@pytest.mark.gpu
+def test_a_tracked_frames_predict_and_bookkeep_wait_for_nothing(monkeypatch):
+    """Under ``torch.cuda.set_sync_debug_mode("error")`` inside the
+    ``frame.predict`` and ``frame.bookkeep`` ranges, tracked frames on
+    quad's switches (deskew and the adaptive crop range on) raise nothing:
+    no host read, no blocking copy there."""
+    import contextlib
+
+    import torch_track_frames as tf
+    from clid_slam_torch.utils import observability as obs
+
+    _cuda()
+    system, fr = tf.system("cuda")
+    system.precompile()
+    tf.run(system, fr, [0, 1])
+    span = obs.span
+    strict = []
+
+    @contextlib.contextmanager
+    def strict_span(name, args=None):
+        if name not in ("frame.predict", "frame.bookkeep"):
+            with span(name, args):
+                yield
+            return
+        strict.append(name)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(obs, "span", strict_span)
+    tf.run(system, fr, [2, 3, 4])
+    assert strict == ["frame.predict", "frame.bookkeep"] * 3
+
+
+@pytest.mark.gpu
+def test_earlier_states_keep_their_rows_across_track_replays():
+    """The graphs write the trajectory, the travel distances and the
+    iteration counts in place, into their own buffers: a clone of the state
+    after frame 2, and the state frame 0 (eager) returned, held as it is,
+    keep their values across five more replayed frames, while the live
+    state gets the new rows and keeps the old."""
+    import torch_track_frames as tf
+    from clid_slam_torch.pipeline.streaming import clone_state
+
+    _cuda()
+    system, fr = tf.system("cuda")
+    system.precompile()
+    tf.run(system, fr, [0])
+    first = system.state
+    first_host = [x.cpu() for x in first.leaves() if isinstance(x, torch.Tensor)]
+    tf.run(system, fr, [1, 2])
+    held = clone_state(system.state)
+    names = ("odom_poses", "travel_dist", "track_iters")
+    host = {k: getattr(held, k).cpu() for k in names}
+    tf.run(system, fr, range(3, tf.N_FRAMES))
+    for k in names:
+        assert torch.equal(getattr(held, k).cpu(), host[k]), k
+        live = getattr(system.state, k).cpu()
+        assert torch.equal(live[:3], host[k][:3]), k
+        assert not torch.equal(live[3:tf.N_FRAMES], host[k][3:tf.N_FRAMES]), k
+    for x, y in zip([x for x in first.leaves() if isinstance(x, torch.Tensor)], first_host):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.gpu
+def test_inv_ex_and_the_identity_quaternion_constant_give_the_parent_bits_on_the_card():
+    """On the card, ``torch.linalg.inv_ex`` gives ``torch.linalg.inv``'s
+    bits on poses, and deskew with its identity quaternion copied to the
+    card once gives the bits of one made by ``torch.tensor`` at each call."""
+    from clid_slam_torch.pipeline.streaming import _inv
+    from clid_slam_torch.utils import lie
+    from clid_slam_torch.utils.transforms import deskew
+
+    dev = _cuda()
+    rng = np.random.default_rng(7)
+    for _ in range(16):
+        T = torch.eye(4, device=dev)
+        T[:3, :3] = lie.so3_exp(torch.from_numpy(rng.normal(0, 0.3, 3).astype(np.float32)).to(dev))
+        T[:3, 3] = torch.from_numpy(rng.normal(0, 5.0, 3).astype(np.float32)).to(dev)
+        assert torch.equal(_inv(T), torch.linalg.inv(T))
+        pts = torch.from_numpy(rng.normal(0, 10.0, (65536, 3)).astype(np.float32)).to(dev)
+        ts = torch.from_numpy(rng.uniform(0, 1, 65536).astype(np.float32)).to(dev)
+        n = pts.shape[0]
+        t = (ts - ts.min()) / torch.clamp(ts.max() - ts.min(), min=1e-12) - 0.5
+        q_id = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+        q_t = lie.quat_slerp(q_id.expand(n, 4), lie.rotmat_to_quat(T[:3, :3]).expand(n, 4),
+                             t[:, None])
+        want = torch.einsum("nij,nj->ni", lie.quat_to_rotmat(q_t), pts) + t[:, None] * T[:3, 3]
+        assert torch.equal(deskew(pts, ts, T), want)
+
+
+@pytest.mark.gpu
+def test_track_graphs_count_the_operations_their_replays_hide():
+    """A replay dispatches no torch operation, so the profiler counts only
+    what runs around a frame's two replays; with ``track.graph_flops``
+    added (one eager run of the stages, counted on copies), the count is the
+    profiler's count of the eager stages on the same frame, within 0.1 %:
+    the profiler also records the few adds that run nested inside another
+    op, which the counting dispatch mode does not see (3 operations of 13
+    million on the CPU at these shapes)."""
+    import torch_track_frames as tf
+    from clid_slam_torch.pipeline import streaming as sm
+    from clid_slam_torch.pipeline.streaming import clone_state
+    from clid_slam_torch.utils import observability as obs
+
+    _cuda()
+    system, fr = tf.system("cuda")
+    tf.run(system, fr, [0, 1])
+    seen = []
+    system.steps = {k: (lambda st, *a, step=v: seen.append((clone_state(st), a)) or step(st, *a))
+                    for k, v in system.steps.items()}
+    tf.run(system, fr, [2])
+    state, args = seen[0]
+    frame = (state, *args[:7])
+    dev = state.rot.device
+    trk = (state.rot, state.pos, state.rest, state.P, torch.ones((), dtype=torch.bool, device=dev),
+           torch.full((), 3, dtype=torch.int32, device=dev))
+    stages = sm.GraphedTrackStages(system.cfg)
+    stages.bookkeep(stages.predict(*frame), trk)  # the capture, outside the profiled call
+    obs.reset_counters()
+    replayed = _profiled_flops(lambda: stages.bookkeep(stages.predict(*frame), trk))
+    counted = obs.counters()
+    obs.reset_counters()
+    eager_stages = _EagerTrackStages(system.cfg)
+    eager = _profiled_flops(lambda: eager_stages.bookkeep(eager_stages.predict(*frame), trk))
+    hidden = counted["track.graph_flops"]
+    assert counted["predict.graph_frames"] == 1
+    assert hidden > 0 and abs(replayed + hidden - eager) <= 1e-3 * eager

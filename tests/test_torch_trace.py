@@ -8,8 +8,9 @@
   counters stay empty;
 - ``track.iters`` is the sum of the traced frames' ``track_iters``, and
   ``map.steps`` the mapping steps the loop ran, on the fused kernel's path
-  and on the autograd loop; no ``syncs`` and no ``track.graph_iters`` (the
-  tracker's graph replays) are counted off the card;
+  and on the autograd loop; no ``syncs``, no ``track.graph_iters`` (the
+  tracker's graph replays) and no prep or predict replays are counted off
+  the card;
 - poses, map, pool and decoders are bit for bit the same with tracing on
   and off;
 - each of the benchmark's readers of these spans and counters
@@ -18,7 +19,8 @@
 
 One test, marked ``gpu``, runs a frame on the card under the profiler: it
 counts the host's syncs, and the sync debug mode is off afterwards; every
-IESEKF iteration there is a graph replay. This
+IESEKF iteration there is a graph replay, and so are predict and
+bookkeep. This
 file imports neither JAX nor the JAX package.
 """
 
@@ -203,6 +205,11 @@ def test_no_prep_replays_are_counted_off_the_card(runs):
     assert runs.counters["frames"] > 0 and "prep.graph_frames" not in runs.counters
 
 
+def test_no_predict_replays_are_counted_off_the_card(runs):
+    # CPU tensors take the eager predict and bookkeep
+    assert runs.counters["frames"] > 0 and "predict.graph_frames" not in runs.counters
+
+
 def test_tracing_changes_no_result(runs):
     a, b = runs.plain.state.leaves(), runs.traced.state.leaves()
     assert len(a) == len(b)
@@ -263,7 +270,7 @@ HOST = {"frame.ingest": 4.0, "frame.upload": 1.5, "frame.predict": 2.0, "frame.t
         "frame.map": 9.0, "frame.map.cache": 3.5, "ba": 7.0}
 COUNTS = {"frames": 10, "track.iters": 40, "track.graph_iters": 30,
           "track.graph_flops": 300_000_000, "prep.graph_frames": 10, "map.steps": 120,
-          "syncs": 230}
+          "syncs": 230, "predict.graph_frames": 8}
 # reader -> its value from HOST and COUNTS (10 frames, a 60 ms frame)
 READINGS = {"ingest_ms": 4.0, "upload_ms": 1.5, "unspanned_ms": 60.0 - 50.0,
             "track_outside_ms": 5.0, "track_candidates_ms": 1.0, "track_iters": 4.0,
@@ -272,9 +279,11 @@ READINGS = {"ingest_ms": 4.0, "upload_ms": 1.5, "unspanned_ms": 60.0 - 50.0,
             "map_steps": 12.0, "host_syncs": 23.0, "track_graph_share": 0.75,
             # K1's 2e8 and the profiler's 1e8 operations (frame_mfu: 5 %), and
             # the replays' 3e8, over 0.6 s at 1e10 a second
-            "frame_mfu_with_replays": 10.0, "prep_graph_share": 1.0}
+            "frame_mfu_with_replays": 10.0, "prep_graph_share": 1.0,
+            "predict_graph_share": 0.8}
 COUNTER_READERS = {"track_iters", "track_iter_ms", "map_steps", "host_syncs",
-                   "track_graph_share", "frame_mfu_with_replays", "prep_graph_share"}
+                   "track_graph_share", "frame_mfu_with_replays", "prep_graph_share",
+                   "predict_graph_share"}
 
 
 def _trace(stage_host_ms, frames=10, window_s=0.6):
@@ -318,6 +327,15 @@ def test_prep_graph_share_reads_none_from_a_program_without_the_prep_graphs(monk
     assert _reader("prep_graph_share")(_trace(dict(HOST))) == 0.0
 
 
+def test_predict_graph_share_reads_none_from_a_program_without_the_predict_graphs(
+        monkeypatch):
+    counts = {k: v for k, v in COUNTS.items() if k != "predict.graph_frames"}
+    monkeypatch.setattr(obs, "counters", lambda: counts)
+    assert _reader("predict_graph_share")(_trace(dict(HOST))) is None
+    monkeypatch.setattr(obs, "counters", lambda: dict(counts, **{"predict.graph_frames": 0}))
+    assert _reader("predict_graph_share")(_trace(dict(HOST))) == 0.0
+
+
 def test_mfu_with_replays_reads_none_from_a_program_without_the_graph(monkeypatch):
     # no replays counted: a program without the graph, which frame_mfu reads
     counts = {k: v for k, v in COUNTS.items() if k != "track.graph_flops"}
@@ -330,12 +348,22 @@ def test_mfu_with_replays_reads_none_from_a_program_without_the_graph(monkeypatc
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("precompiled", [False, True], ids=["captured_in_frame", "precompiled"])
-def test_a_frame_on_the_card_counts_its_syncs(precompiled):
-    """Without ``precompile()`` the traced frame captures the tracker's and
-    the prep's graphs; with it, they are captured before frame 0 and the
-    traced frame only replays them."""
+def test_a_frame_on_the_card_counts_its_syncs(precompiled, monkeypatch):
+    """Without ``precompile()`` the traced frame captures the tracker's,
+    predict's and bookkeep's and the prep's graphs; with it, they are
+    captured before frame 0 and the traced frame only replays them.
+    ``track.graph_flops`` holds the iterations' operations and, once, the
+    predict and bookkeep stages'."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    kept = []
+
+    class Kept(streaming.GraphedTrackStages):
+        def __init__(self, *a):
+            super().__init__(*a)
+            kept.append(self)
+
+    monkeypatch.setattr(streaming, "GraphedTrackStages", Kept)
     system, seq = _system(_config(), device="cuda")
     if precompiled:
         system.precompile()
@@ -350,8 +378,11 @@ def test_a_frame_on_the_card_counts_its_syncs(precompiled):
     assert c["syncs"] == sum(v for k, v in c.items() if k.startswith("syncs."))
     assert torch.cuda.get_sync_debug_mode() == 0
     assert c["track.iters"] == c["track.graph_iters"] == int(system.sync()["track_iters"][1])
-    assert c["track.graph_flops"] > 0 and c["track.graph_flops"] % c["track.graph_iters"] == 0
-    assert c["prep.graph_frames"] == 1
-    if precompiled:  # prep, the step count and K1's mapping step wait for nothing
-        assert not any(c.get(f"syncs.frame.{s}") for s in ("prep", "iters", "map"))
+    (stages,) = [f.flops() for k in kept for f in k.frames.values()]
+    iterations = c["track.graph_flops"] - stages
+    assert stages > 0 and iterations > 0 and iterations % c["track.graph_iters"] == 0
+    assert c["prep.graph_frames"] == c["predict.graph_frames"] == 1
+    if precompiled:  # predict, bookkeep, prep, the step count and K1's step wait for nothing
+        assert not any(c.get(f"syncs.frame.{s}")
+                       for s in ("predict", "bookkeep", "prep", "iters", "map"))
     obs.reset_counters()
