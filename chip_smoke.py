@@ -2054,8 +2054,8 @@ def launch_attribution(prof, n_profiled):
     """Device time per frame of every device activity, by the ``frame.*``
     range whose host span holds the runtime call that launched it. The
     profiler ties a kernel to a stage only through a torch op; a kernel
-    launched through ctypes (the hand kernels) has none, so its launch's
-    host time places it here. Returns (ms by stage, with "outside" and
+    launched through an extension module (the hand kernels) has none, so
+    its launch's host time places it here. Returns (ms by stage, with "outside" and
     "unlinked"; the hand kernels' ms and launches by stage, with PyTorch's
     scatter/gather elementwise kernel beside them)."""
     import torch

@@ -69,8 +69,13 @@
 //   * n_iters is read on the device, so there is no host sync and no idle
 //     launch when n_iters < max_iters.
 
+// Python.h first, as the Python API asks: ops/map_loop.py calls the entries
+// at the end of this file as a Python extension module
+#include <Python.h>
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
@@ -899,10 +904,6 @@ bool shapes_ok(int bs, int K, int P, int H, int nh, int bd, int dec_step) {
          (bd - 1) * static_cast<long long>(dec_step) < bs;
 }
 
-}  // namespace
-
-extern "C" {
-
 // How one call runs on the current device: out = {grid, samples per block,
 // tap rows per block (capacity), resident (1) or streamed (0), dynamic
 // shared memory bytes, scratch floats per block}. mode 0 keeps the slab in
@@ -950,38 +951,41 @@ int clid_map_loop_plan(int bs, int K, int P, int H, int n_hidden, int layer_norm
   return 0;
 }
 
-// One cooperative launch of the whole loop on `stream`, with a plan from
-// clid_map_loop_plan. Returns a cudaError_t (0 = launched). Argument checks
-// live in the Python wrapper; values the kernel cannot take return
-// cudaErrorInvalidValue.
-int clid_map_loop(const float* f_in, float* f_out, float* m, float* v, const float* w0,
-                  const float* encw0, const float* label_op, const float* wsel,
-                  const float* wtap, const float* enctapw, const float* vd, float* mlp,
-                  float* partials, float* scratch, float* losses,
-                  const float* scal, int bs, int K, int P, int H, int n_hidden,
-                  int layer_norm, int bd, int dec_step, int max_iters, int grid, int spc,
-                  int ntap, int resident, float sdf_scale, float sigma, float lr,
-                  float adam_eps, float weight_e, float num_grad_eps, void* stream) {
+template <typename T>
+T* ptr(long long v) { return reinterpret_cast<T*>(static_cast<intptr_t>(v)); }
+
+// One cooperative launch of the whole loop, with a plan from
+// clid_map_loop_plan. a: 16 pointers (f_in, f_out, m, v, w0, encw0,
+// label_op, wsel, wtap, enctapw, vd, mlp, partials, scratch, losses, scal),
+// 13 ints (bs, K, P, H, n_hidden, layer_norm, bd, dec_step, max_iters,
+// grid, spc, ntap, resident) and the stream; x: sdf_scale, sigma, lr,
+// adam_eps, weight_e, num_grad_eps. Returns a cudaError_t (0 = launched).
+// Argument checks live in the Python wrapper; values the kernel cannot take
+// return cudaErrorInvalidValue.
+int clid_map_loop(const long long* a, const float* x) {
+  const long long* n = a + 16;
+  const int bs = n[0], K = n[1], P = n[2], H = n[3], n_hidden = n[4], bd = n[6],
+            dec_step = n[7], max_iters = n[8], grid = n[9], spc = n[10], ntap = n[11];
   if (!shapes_ok(bs, K, P, H, n_hidden, bd, dec_step) || max_iters < 0 || grid < 1 ||
       spc != cdiv(bs, grid) || ntap != tap_cap(spc, dec_step, bd))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.f_in = f_in;
-  p.f_out = f_out;
-  p.m = m;
-  p.v = v;
-  p.w0 = w0;
-  p.encw0 = encw0;
-  p.label_op = label_op;
-  p.wsel = wsel;
-  p.wtap = wtap;
-  p.enctapw = enctapw;
-  p.vd = vd;
-  p.mlp = mlp;
-  p.partials = partials;
-  p.scratch = scratch;
-  p.losses = losses;
-  p.scal = scal;
+  p.f_in = ptr<const float>(a[0]);
+  p.f_out = ptr<float>(a[1]);
+  p.m = ptr<float>(a[2]);
+  p.v = ptr<float>(a[3]);
+  p.w0 = ptr<const float>(a[4]);
+  p.encw0 = ptr<const float>(a[5]);
+  p.label_op = ptr<const float>(a[6]);
+  p.wsel = ptr<const float>(a[7]);
+  p.wtap = ptr<const float>(a[8]);
+  p.enctapw = ptr<const float>(a[9]);
+  p.vd = ptr<const float>(a[10]);
+  p.mlp = ptr<float>(a[11]);
+  p.partials = ptr<float>(a[12]);
+  p.scratch = ptr<float>(a[13]);
+  p.losses = ptr<float>(a[14]);
+  p.scal = ptr<const float>(a[15]);
   p.bs = bs;
   p.K = K;
   p.P = P;
@@ -1001,18 +1005,57 @@ int clid_map_loop(const float* f_in, float* f_out, float* m, float* v, const flo
   p.n_params = mlp_params(P, H, n_hidden);
   p.npg = p.n_params + 2;
   p.cpb = cdiv(p.npg, grid);
-  p.sdf_scale = sdf_scale;
-  p.sigma = sigma;
-  p.lr = lr;
-  p.adam_eps = adam_eps;
-  p.weight_e = weight_e;
-  p.inv2eps = 1.f / (2.f * num_grad_eps);
-  const bool ln = layer_norm != 0, res = resident != 0;
+  p.sdf_scale = x[0];
+  p.sigma = x[1];
+  p.lr = x[2];
+  p.adam_eps = x[3];
+  p.weight_e = x[4];
+  p.inv2eps = 1.f / (2.f * x[5]);
+  const bool ln = n[5] != 0, res = n[12] != 0;
   p.L = make_layout(K, P, H, n_hidden, ln, spc, ntap, p.cpb, res);
   void* args[] = {&p};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(pick(n_hidden, H, ln, res)), dim3(grid), dim3(kNT), args,
-      static_cast<size_t>(p.L.smem_floats) * 4, static_cast<cudaStream_t>(stream)));
+      static_cast<size_t>(p.L.smem_floats) * 4, static_cast<cudaStream_t>(ptr<void>(a[29]))));
 }
 
-}  // extern "C"
+// The Python entry points: module clid_map_loop, METH_FASTCALL functions
+// taking Python ints (pointers and the stream as their addresses) and the
+// launch's float arguments as Python floats, rounded to float as ctypes'
+// c_float rounds them. The launch returns its cudaError_t, the plan the
+// tuple of its six ints (or raises RuntimeError with its cudaError_t).
+
+PyObject* py_map_loop(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 36)
+    return PyErr_Format(PyExc_TypeError, "map_loop: expected 36 arguments, got %zd", nargs);
+  long long a[30];
+  float x[6];
+  for (int i = 0; i < 29; ++i) a[i] = PyLong_AsLongLong(args[i]);
+  for (int i = 0; i < 6; ++i) x[i] = static_cast<float>(PyFloat_AsDouble(args[29 + i]));
+  a[29] = PyLong_AsLongLong(args[35]);
+  if (PyErr_Occurred()) return nullptr;
+  return PyLong_FromLong(clid_map_loop(a, x));
+}
+
+PyObject* py_plan(PyObject*, PyObject* const* args, Py_ssize_t nargs) {
+  if (nargs != 9)
+    return PyErr_Format(PyExc_TypeError, "plan: expected 9 arguments, got %zd", nargs);
+  int a[9], out[6];
+  for (int i = 0; i < 9; ++i) a[i] = static_cast<int>(PyLong_AsLong(args[i]));
+  if (PyErr_Occurred()) return nullptr;
+  const int err = clid_map_loop_plan(a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], out);
+  if (err != 0) return PyErr_Format(PyExc_RuntimeError, "map_loop plan failed: cudaError %d", err);
+  return Py_BuildValue("(iiiiii)", out[0], out[1], out[2], out[3], out[4], out[5]);
+}
+
+PyMethodDef methods[] = {
+    {"map_loop", (PyCFunction)(void (*)(void))py_map_loop, METH_FASTCALL, nullptr},
+    {"plan", (PyCFunction)(void (*)(void))py_plan, METH_FASTCALL, nullptr},
+    {nullptr, nullptr, 0, nullptr},
+};
+
+PyModuleDef map_loop_module = {PyModuleDef_HEAD_INIT, "clid_map_loop", nullptr, -1, methods};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit_clid_map_loop(void) { return PyModule_Create(&map_loop_module); }

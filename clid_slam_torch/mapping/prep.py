@@ -8,12 +8,14 @@ a tracked frame's prep replays CUDA graphs of the same stages
 
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import graphs
 from ..models import local_map as lm
 from ..ops import gather as gt
 from ..models import neural_map as nm
@@ -231,15 +233,14 @@ class GraphedPrep:
 
     ``preps`` maps ``filter_pool_now`` to ``make_prep_fn``'s two variants.
     Each is captured at its first call (``StreamingSlam.precompile()`` makes
-    both): a warm-up, then, on a stream of this object's and in one memory
-    pool for both, one graph per nested span (``frame.prep.local_map``,
-    ``.sample``, ``.insert``, ``.pool``), each replayed inside its span. A row gather (``ops/gather.py:gather_rows``,
-    a hand kernel) breaks its span's graph in two: it runs eagerly between
-    the pieces, where the benchmark's launch recorder sees it, and its rows
-    are copied to where the next piece reads them. The warm-up and the
-    capture launch no gather kernel (the warm-up gathers with the plain
-    version), so a frame that captures launches the kernels of one that
-    replays.
+    both), through one ``graphs.Capture`` of this object's that both share:
+    a warm-up, then one stage per nested span (``frame.prep.local_map``,
+    ``.sample``, ``.insert``, ``.pool``), each replayed inside its span. The
+    capture breaks at the row gathers (``ops/gather.py:gather_rows``, a hand
+    kernel): each runs eagerly between two graphs, where the benchmark's
+    launch recorder sees it. The warm-up runs on the frames' stream and
+    gathers with the plain version, so a frame that captures launches the
+    kernels of one that replays.
 
     The graphs write the local map, the map and the pool in place, into
     buffers of this object's, which the returned state holds. A call whose
@@ -257,8 +258,7 @@ class GraphedPrep:
         self.window = window
         self.bufs = None  # {"map": {name: t}, "local": LocalMapState, "pool": ReplayPool, ...}
         self.graphs = {}  # filter_pool_now -> (frame namespace, [(span, steps)])
-        self.mem = None  # the graphs' memory pool, shared in capture order
-        self.stream = None  # the captures' stream (a pool's blocks serve one stream)
+        self.capture = None  # the graphs.Capture both variants share
 
     def __call__(self, filter_pool_now, map_state, local_map, pool, points, mask, pose,
                  travel_dist, frame_id: int, generator) -> PrepResult:
@@ -267,9 +267,7 @@ class GraphedPrep:
             self._make_buffers(live, points, mask, pose, travel_dist)
         if filter_pool_now not in self.graphs:
             self._capture(filter_pool_now, live, generator)
-        for buf, x in zip(self._state_bufs(), live):
-            if x is not buf:
-                buf.copy_(x)
+        graphs.fill(self._state_bufs(), live)
         b = self.bufs
         b["points"].copy_(points)
         b["mask"].copy_(mask)
@@ -280,7 +278,7 @@ class GraphedPrep:
         f, stages = self.graphs[filter_pool_now]
         for name, steps in stages:
             with obs.span(name):
-                self._replay(steps)
+                graphs.replay(steps)
         obs.count("prep.graph_frames")
         # the scalars are the graphs' own memory: the caller gets copies
         return PrepResult(
@@ -298,7 +296,7 @@ class GraphedPrep:
         return self._leaves(SimpleNamespace(**b["map"]), b["local"], b["pool"])
 
     def _make_buffers(self, live, points, mask, pose, travel_dist):
-        live = [x.clone() for x in live]
+        live = graphs.buffers(live)
         nmap = len(_MAP_LEAVES)
         n_local = len(lm.LocalMapState.__dataclass_fields__)
         any_prep = next(iter(self.preps.values()))
@@ -337,76 +335,21 @@ class GraphedPrep:
         gen = torch.Generator(device=generator.device)
         gen.set_state(generator.get_state())
         prep.draw(gen, *self.bufs["draws"])
-        # the warm-up runs on the frames' stream, so that its scratch is
-        # cached where the frames reuse it (no autograd runs here, which
-        # would tie a warm-up to its stream); cuBLAS's per-stream
-        # workspaces are cleared around each phase, as for the tracker's
-        # graph (odometry/iekf.py:_GraphedIterations)
-        torch._C._cuda_clearCublasWorkspaces()
-        with gt.breaks(gt.gather_rows_reference):
-            f = self._frame()
-            prep.start(f)
-            for _, stage in prep.stages:
-                stage(f)
-        torch.cuda.synchronize()
-        torch._C._cuda_clearCublasWorkspaces()
-        if self.mem is None:
-            self.mem = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream()
-        side = self.stream
-        side.wait_stream(torch.cuda.current_stream())
+
+        def warm_up():  # on the frames' stream: no autograd runs in prep
+            with gt.breaks(gt.gather_rows_reference):
+                w = self._frame()
+                prep.start(w)
+                for _, stage in prep.stages:
+                    stage(w)
+
         f = self._frame()
-        pieces = _Pieces(self.mem)
-        stages = []
-        with torch.cuda.stream(side), gt.breaks(pieces.gather):
-            for i, (name, stage) in enumerate(prep.stages):
-                pieces.begin()
-                if i == 0:
-                    prep.start(f)
-                stage(f)
-                stages.append((name, pieces.end()))
-        torch.cuda.current_stream().wait_stream(side)
-        torch._C._cuda_clearCublasWorkspaces()
-        self.graphs[filter_pool_now] = (f, stages)
+        (_, first), *rest = prep.stages
+        stages = [lambda: (prep.start(f), first(f))] + [
+            functools.partial(stage, f) for _, stage in rest]
+        if self.capture is None:
+            self.capture = graphs.Capture()
+        steps = self.capture(stages, warm_up=warm_up, breaks=True)
+        self.graphs[filter_pool_now] = (f, [(name, s) for (name, _), s in zip(prep.stages, steps)])
         if saved is not None:
-            for buf, x in zip(state_bufs, saved):
-                buf.copy_(x)
-
-    @staticmethod
-    def _replay(steps):
-        for step in steps:
-            if isinstance(step, torch.cuda.CUDAGraph):
-                step.replay()
-            else:  # a graph break: the row gather, eagerly, into the next piece's input
-                table, idx, out = step
-                out.copy_(gt.gather_rows(table, idx))
-
-
-class _Pieces:
-    """Captures one span's work as CUDA graphs in the memory pool ``mem``,
-    broken at each row gather (``gather`` is the hook of
-    ``ops/gather.py:breaks``): ``begin()``, the span's work, then ``end()``
-    returns its steps, graphs with ``(table, idx, out)`` between them."""
-
-    def __init__(self, mem):
-        self.mem = mem
-        self.steps = []
-        self.graph = None
-
-    def begin(self):
-        self.graph = torch.cuda.CUDAGraph()
-        # thread-local: another thread's CUDA call cannot invalidate it
-        self.graph.capture_begin(pool=self.mem, capture_error_mode="thread_local")
-
-    def end(self) -> list:
-        self.graph.capture_end()
-        steps, self.steps = self.steps + [self.graph], []
-        return steps
-
-    def gather(self, table, idx):
-        self.steps = self.end()
-        # only its place matters: the replays fill it
-        out = table.new_empty((idx.shape[0], table.shape[1]))
-        self.steps.append((table, idx, out))
-        self.begin()
-        return out
+            graphs.fill(state_bufs, saved)

@@ -15,9 +15,9 @@ Device loops:
   stagnation, low validity) computed on the device. The host reads the exit
   flag once per iteration. On a CUDA device the cached update replays the
   iteration from a CUDA graph captured at its first call
-  (``_GraphedIterations``), the same kernels on the same layouts; on the
-  CPU, and in the re-querying update (data-dependent map probes), the
-  iterations run eagerly.
+  (``_GraphedIterations``, through ``graphs.py``), the same kernels on the
+  same layouts; on the CPU, and in the re-querying update (data-dependent
+  map probes), the iterations run eagerly.
 
 Both measurement reductions decode weighted-first (the IDW-weighted
 feature decoded once) or, with ``weighted_first=False``, decode each
@@ -36,6 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import graphs
 from ..device import on_device
 from ..models import decoder as dec
 from ..models import neural_map as nm
@@ -446,24 +447,21 @@ def _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, **loop_kw):
 
 class _GraphedIterations:
     """The cached update's iterations on the card: one iteration captured
-    as a CUDA graph over fixed buffers, replayed once an iteration, with one
-    host read of its stop flag. It computes what ``_iterated_update`` does
-    to the bit: the same kernels on the same layouts.
+    as a CUDA graph over fixed buffers (``graphs.Capture``, at the first
+    call for these shapes: ``precompile()`` makes that call before frame
+    0), replayed once an iteration, with one host read of its stop flag. It
+    computes what ``_iterated_update`` does to the bit: the same kernels on
+    the same layouts.
 
     ``inputs`` (candidates, mlp, points_imu, mask, rot0, pos0, rest0, P) fix
     the buffers' shapes and strides; ``run`` copies a frame's inputs into
-    them. The capture (a warm-up on a side stream, as ``torch.cuda.graphs``
-    asks, then the graph) happens here, at the first call for these
-    shapes: ``precompile()`` makes that call before frame 0. A replay
-    dispatches no operation for a profiler to count, so while tracing
-    ``run`` counts the replays' operations in ``track.graph_flops``: one
-    eager iteration's (``iteration_flops``), counted when the counters are
-    read, after the traced frames."""
+    them. While tracing, ``run`` counts the replays' operations in
+    ``track.graph_flops``: one eager iteration's (``graphs.op_count``),
+    counted when the counters are read, after the traced frames."""
 
     def __init__(self, make_h_reduce, inputs, loop_kw):
         self.loop_kw = loop_kw
-        self.flops = None  # iteration_flops()
-        self.inputs = _clone_inputs(inputs)
+        self.inputs = _rebuilt(inputs, graphs.buffers(_leaves(inputs)))
         self.device = inputs[2].device
         cands, mlp, points_imu, mask, rot0, pos0, rest0, P = self.inputs
         # held for the graph's life: the graph reads the tensors it closes over
@@ -479,124 +477,50 @@ class _GraphedIterations:
                     buf.copy_(x)
                 self.stop.copy_(stop)
 
-            # cuBLAS keeps a workspace (~35 MB) per stream. Cleared before
-            # each phase and after the capture, one at a time is allocated
-            # (the capture's stays in the graph's pool), so the capture's
-            # allocated peak is an eager iteration's (torch._inductor's
-            # graphs do the same). The call is private to torch (there in
-            # torch 2.11 and 2.13) and may go in another version: then the
-            # capture fails here, before any frame.
-            torch._C._cuda_clearCublasWorkspaces()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(3):
-                    step()
-            torch.cuda.current_stream().wait_stream(side)
-            torch._C._cuda_clearCublasWorkspaces()
-            self.graph = torch.cuda.CUDAGraph()
-            # thread-local: another thread's CUDA call during the capture
-            # (NCCL's watchdog querying its events, in the sharded driver)
-            # neither fails nor invalidates it; this thread's still fail
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                step()
-            torch._C._cuda_clearCublasWorkspaces()
+            (self.steps,) = graphs.Capture()([step])
+        # an eager iteration over the buffers leaves them as they are
+        self.flops = graphs.op_count(
+            lambda: _iteration(h_reduce, self.consts, self.state, **loop_kw), self.device)
 
     def run(self, inputs):
-        for buf, x in zip(_leaves(self.inputs), _leaves(inputs)):
-            buf.copy_(x)
+        graphs.fill(_leaves(self.inputs), _leaves(inputs))
         cands, mlp, points_imu, mask, rot0, pos0, rest0, P = self.inputs
         consts, state = _update_start(mask, rot0, pos0, rest0, P)
         # rot0, pos0, rest0 and I18 are buffers already
-        for buf, x in zip(self.consts[3:5] + self.state, consts[3:5] + state):
-            buf.copy_(x)
+        graphs.fill(self.consts[3:5] + self.state, consts[3:5] + state)
         i = 0
         with torch.cuda.device(self.device):
             while i < self.loop_kw["max_iteration"]:
                 with obs.span("frame.track.iter"):
-                    self.graph.replay()
+                    graphs.replay(self.steps)
                     i += 1
                     if bool(self.stop):  # one host read per iteration
                         break
         obs.count("track.iters", i)
         obs.count("track.graph_iters", i)
-        obs.count("track.graph_flops", lambda: i * self.iteration_flops())
+        obs.count("track.graph_flops", lambda: i * self.flops())
         rot, pos, rest, P_new, ok, n_iter = _update_result(self.consts, self.state,
                                                            **self.loop_kw)
         # the buffers are this object's: the caller gets copies
         return rot.clone(), pos.clone(), rest.clone(), P_new, ok, n_iter.clone()
 
-    def iteration_flops(self) -> int:
-        """The operations of one iteration (``flops_of``), counted once on an
-        eager iteration over the buffers, which it leaves as they are."""
-        if self.flops is None:
-            with torch.cuda.device(self.device):
-                self.flops = sum(flops_of(lambda: _iteration(
-                    self.h_reduce, self.consts, self.state, **self.loop_kw)).values())
-        return self.flops
-
-
-def flops_of(fn: Callable[[], object]) -> dict:
-    """Run ``fn()`` once and return its operations by op, ``{"aten::mm":
-    n, ...}``, by the formulas of torch's profiler (``with_flops``, the
-    count ``frame_mfu`` reads): 2·m·n·k a matrix product, and for each
-    ``mul`` and ``add`` one an element of its first operand. Counted on the
-    dispatched ops, it also counts the autograd engine's sums of gradients,
-    which the profiler does not record (a few % of an IESEKF iteration).
-    No profiler is started (one takes seconds to start on the card, and
-    profilers do not nest), but a first dispatch mode imports
-    ``torch._dynamo`` (about 2 s). A profiler that runs already records the
-    counted ops twice (as dispatched, and as the counting mode runs them)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    def numel(x):
-        return x.numel() if isinstance(x, torch.Tensor) else 0
-
-    def product(a, b):  # [.., m, k] @ [.., k, n]
-        return 2 * numel(a) * b.shape[-1]
-
-    aten = torch.ops.aten
-    rules = {aten.mm: lambda a, b, *_, **__: product(a, b),
-             aten.bmm: lambda a, b, *_, **__: product(a, b),
-             aten.addmm: lambda c, a, b, *_, **__: product(a, b),
-             aten.baddbmm: lambda c, a, b, *_, **__: product(a, b),
-             aten.mul: lambda a, *_, **__: numel(a),
-             aten.add: lambda a, *_, **__: numel(a)}
-    counts = {}
-
-    class Count(TorchDispatchMode):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            rule = rules.get(func.overloadpacket)
-            if rule is not None:
-                name = f"aten::{func.overloadpacket.__name__}"
-                counts[name] = counts.get(name, 0) + rule(*args, **(kwargs or {}))
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return counts
-
-
-def _clone_inputs(inputs):
-    """(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P) copied into
-    tensors of their own with the same shapes and strides (a candidate may
-    be None; a strided view, as the sharded tracker's slices of its
-    exchanged payload, gets a buffer strided as it is)."""
-    cands, mlp, *rest = inputs
-
-    def fn(x):
-        x = x.detach()
-        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
-                                   device=x.device).copy_(x)
-
-    mlp = dec.MLPParams([fn(w) for w in mlp.weights], [fn(b) for b in mlp.biases],
-                        fn(mlp.w_out), fn(mlp.b_out))
-    return (tuple(None if c is None else fn(c) for c in cands), mlp, *[fn(x) for x in rest])
-
 
 def _leaves(inputs):
+    """The tensors of (candidates, mlp, points_imu, mask, rot0, pos0, rest0,
+    P): the decoder's, the candidates' (a candidate may be None), then the
+    rest."""
     cands, mlp, *rest = inputs
-    return [c for c in cands if c is not None] + mlp.tensors() + rest
+    return mlp.tensors() + [c for c in cands if c is not None] + rest
+
+
+def _rebuilt(inputs, leaves):
+    """``inputs`` with its tensors, in ``_leaves``' order, replaced by
+    ``leaves``."""
+    cands, mlp, *rest = inputs
+    it = iter(leaves)
+    mlp = dec.MLPParams([next(it) for _ in mlp.weights], [next(it) for _ in mlp.biases],
+                        next(it), next(it))
+    return (tuple(None if c is None else next(it) for c in cands), mlp, *it)
 
 
 def _decoded_mean_std(pred_k, w):
@@ -722,7 +646,7 @@ def make_cached_update_fn(
 
         return h_reduce_cached
 
-    graphs = {}  # the captured iterations by their inputs' shapes, layouts and device
+    captured = {}  # the captured iterations by their inputs' shapes, layouts and device
 
     def dense_update(candidates, mlp, points_imu, mask, rot0, pos0, rest0, P):
         """The iterations over built candidates: replays of one captured
@@ -733,10 +657,10 @@ def make_cached_update_fn(
             return _iterated_update(h_reduce, mask, rot0, pos0, rest0, P, **loop_kw)
         # the factory fixes the options and exit constants; the inputs' shapes,
         # layouts, dtypes and device fix the rest of what a capture holds
-        key = tuple((x.shape, x.stride(), x.dtype, x.device) for x in _leaves(inputs))
-        if key not in graphs:
-            graphs[key] = _GraphedIterations(make_h_reduce, inputs, loop_kw)
-        return graphs[key].run(inputs)
+        key = graphs.layout_key(_leaves(inputs))
+        if key not in captured:
+            captured[key] = _GraphedIterations(make_h_reduce, inputs, loop_kw)
+        return captured[key].run(inputs)
 
     def body(map_state, mlp, points_imu, mask, rot0, pos0, rest0, P,
              travel_dist, cur_ts, window):

@@ -2,16 +2,16 @@
 
 Each ``clid_slam_torch/csrc/<name>.cu`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library at first use, under
-``clid_slam_torch/build/`` (listed in ``.gitignore``), and bound either
-with ``ctypes`` (``load``: its C entry points) or as the Python extension
-module ``clid_<name>`` that the source defines (``load_module``: a call
-through it costs the host less). The library's file name carries a hash of
+``clid_slam_torch/build/`` (listed in ``.gitignore``), and loaded as the
+Python extension module ``clid_<name>`` that the source defines
+(``load_module``): METH_FASTCALL entries that take pointers, sizes and the
+stream as Python ints, so the source includes only Python's and CUDA's
+headers and builds in seconds. The library's file name carries a hash of
 the source and of ``NVCC_FLAGS``, so a change to either builds a new one.
 """
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
 import importlib.machinery
 import importlib.util
@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 
 SOURCES = ("map_loop", "gather")  # every csrc/<name>.cu
 
-_libs: Dict[str, object] = {}
+_modules: Dict[str, object] = {}
 _lock = threading.Lock()
 
 
@@ -84,12 +84,6 @@ def finish_build(started) -> str:
     return err
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into ``lib_path(name)`` unless it is
-    there. Returns nvcc's -Xptxas -v report when it compiled."""
-    return finish_build(start_build(name))
-
-
 def build_all() -> Dict[str, str]:
     """Build every source that is not built yet, one nvcc each, side by
     side. Returns each source's -Xptxas -v report ("" when nothing was
@@ -98,28 +92,16 @@ def build_all() -> Dict[str, str]:
     return {n: finish_build(b) for n, b in zip(SOURCES, started)}
 
 
-def load(name: str, declare) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built at first use.
-    ``declare(lib)`` sets the argtypes and restypes of its functions."""
-    with _lock:
-        if name not in _libs:
-            build(name)
-            lib = ctypes.CDLL(lib_path(name))
-            declare(lib)
-            _libs[name] = lib
-        return _libs[name]
-
-
 def load_module(name: str):
     """The Python extension module ``clid_<name>`` that ``csrc/<name>.cu``
     defines, built at first use."""
     with _lock:
-        if name not in _libs:
-            build(name)
+        if name not in _modules:
+            finish_build(start_build(name))
             mod_name = f"clid_{name}"
             loader = importlib.machinery.ExtensionFileLoader(mod_name, lib_path(name))
             spec = importlib.util.spec_from_file_location(mod_name, lib_path(name), loader=loader)
             module = importlib.util.module_from_spec(spec)
             loader.exec_module(module)
-            _libs[name] = module
-        return _libs[name]
+            _modules[name] = module
+        return _modules[name]

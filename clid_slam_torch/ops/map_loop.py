@@ -4,7 +4,8 @@ PyTorch version.
 Replaces ``clid_slam_tpu/ops/pallas_mapping.py:make_pallas_map_loop``. The
 kernel source is ``clid_slam_torch/csrc/map_loop.cu`` (its header note
 says what bounds it on the H100 and how the design answers that);
-``ops/_build.py`` compiles it at first use and binds it with ``ctypes``.
+``ops/_build.py`` compiles it at first use and loads it as the Python
+extension module it defines, as it does the gathers (``ops/gather.py``).
 
 ``map_loop`` dispatches on the tensors' device: CUDA tensors launch the
 kernel (or raise), CPU tensors run ``map_loop_reference``. There is no
@@ -18,7 +19,6 @@ tap validity [bd]. Tap j belongs to sample j * dec_step.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -30,16 +30,8 @@ from . import _build
 launches = 0
 
 
-def _declare(lib):
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.clid_map_loop.argtypes = [vp] * 16 + [ci] * 13 + [cf] * 6 + [vp]
-    lib.clid_map_loop.restype = ci
-    lib.clid_map_loop_plan.argtypes = [ci] * 9 + [vp]
-    lib.clid_map_loop_plan.restype = ci
-
-
 class Plan(NamedTuple):
-    """How one call runs on the card (``clid_map_loop_plan``): blocks of
+    """How one call runs on the card (the module's ``plan``): blocks of
     the cooperative launch, samples per block, tap capacity per block,
     whether the slab stays in shared memory, dynamic shared memory bytes
     and device-memory scratch floats per block (streamed slabs only)."""
@@ -53,10 +45,6 @@ class Plan(NamedTuple):
 
 
 _plans: Dict[tuple, Plan] = {}
-
-
-def _load():
-    return _build.load("map_loop", _declare)
 
 
 def flatten_mlp(mlp: MLPParams) -> torch.Tensor:
@@ -91,14 +79,11 @@ def plan(bs: int, K: int, P: int, H: int, n_hidden: int, layer_norm: bool, bd: i
     stays in shared memory where it fits, unless ``streamed`` (``_launch``)."""
     key = (bs, K, P, H, n_hidden, bool(layer_norm), bd, dec_step, str(device), streamed)
     if key not in _plans:
-        lib = _load()
-        out = (ctypes.c_int * 6)()
-        # the plan also sets the kernels' shared-memory limit on the device
+        # the plan also sets the kernels' shared-memory limit on the device;
+        # it raises RuntimeError with the cudaError_t where it fails
         with torch.cuda.device(device):
-            err = lib.clid_map_loop_plan(bs, K, P, H, n_hidden, int(bool(layer_norm)), bd,
-                                         dec_step, int(streamed), out)
-        if err != 0:
-            raise RuntimeError(f"map_loop plan failed: cudaError {err}")
+            out = _build.load_module("map_loop").plan(
+                bs, K, P, H, n_hidden, int(bool(layer_norm)), bd, dec_step, int(streamed))
         _plans[key] = Plan(out[0], out[1], out[2], bool(out[3]), out[4], out[5])
     return _plans[key]
 
@@ -168,7 +153,6 @@ def _launch(
         _check(name, t, shape, dev)
     if f0.data_ptr() % 16 != 0:
         raise ValueError("map_loop: f0 is not 16-byte aligned")
-    lib = _load()
     pl = plan(bs, K, P, H, nh, layer_norm, bd, dec_step, dev, streamed)
     flat = flatten_mlp(mlp)
     npg = flat.numel() + 2
@@ -184,15 +168,15 @@ def _launch(
     scal = torch.stack([
         dev_scalar(n_iters), dev_scalar(mlp_lr), dev_scalar(denom_inv), dev_scalar(eik_den_inv)
     ]).contiguous()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = lib.clid_map_loop(
-        ptr(f0), ptr(f_out), ptr(mom[0]), ptr(mom[1]), ptr(w0), ptr(encw0),
-        ptr(label_op), ptr(wsel), ptr(wtap), ptr(enctapw), ptr(vd),
-        ptr(flat), ptr(partials), ptr(scratch), ptr(losses),
-        ptr(scal), bs, K, P, H, nh, int(bool(layer_norm)), bd, dec_step, int(max_iters),
+    err = _build.load_module("map_loop").map_loop(
+        f0.data_ptr(), f_out.data_ptr(), mom[0].data_ptr(), mom[1].data_ptr(), w0.data_ptr(),
+        encw0.data_ptr(), label_op.data_ptr(), wsel.data_ptr(), wtap.data_ptr(),
+        enctapw.data_ptr(), vd.data_ptr(), flat.data_ptr(), partials.data_ptr(),
+        scratch.data_ptr(), losses.data_ptr(), scal.data_ptr(),
+        bs, K, P, H, nh, int(bool(layer_norm)), bd, dec_step, int(max_iters),
         pl.grid, pl.spc, pl.ntap, int(pl.resident),
         sdf_scale, sigma, lr, adam_eps, weight_e, num_grad_eps,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        torch._C._cuda_getCurrentRawStream(f0.get_device()),
     )
     if err != 0:
         raise RuntimeError(f"map_loop kernel launch failed: cudaError {err}")

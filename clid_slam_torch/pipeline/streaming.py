@@ -80,6 +80,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import Config
 from ..device import resolve_device, scalar
 from ..mapping import mapper as mp
@@ -478,22 +479,6 @@ def eager_frame(state: StreamState, frame_id: int, points, pmask, point_ts, imu_
     return f
 
 
-def _like(x):
-    """A copy of ``x`` with its shape and strides (a strided view of the
-    upload gets a buffer strided as it is)."""
-    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device).copy_(x)
-
-
-def _graph(stage, mem) -> torch.cuda.CUDAGraph:
-    """``stage()`` captured as a CUDA graph in the memory pool ``mem``;
-    thread-local, as the tracker's graph (another thread's CUDA call
-    neither fails nor invalidates it)."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=mem, capture_error_mode="thread_local"):
-        stage()
-    return graph
-
-
 class GraphedTrackStages:
     """A tracked frame's ``frame.predict`` and ``frame.bookkeep`` on the
     card: one replay each of a CUDA graph of ``predict_stage`` and of
@@ -502,10 +487,10 @@ class GraphedTrackStages:
 
     The graphs are captured at the first call for a key of the inputs'
     shapes, strides, dtypes and device (``StreamingSlam.precompile()``
-    makes it): a warm-up on a side stream, then both graphs in one memory
-    pool, in the order they replay. A capture leaves the state it is given
-    as it was (the graphs work on buffers of their own; nothing here draws
-    from a generator).
+    makes it), through one ``graphs.Capture`` a key: a warm-up of both
+    stages, then both graphs in its memory pool, in the order they replay.
+    A capture leaves the state it is given as it was (the graphs work on
+    buffers of their own; nothing here draws from a generator).
 
     Everything that changes from frame to frame enters through a buffer
     written before the replay: the scan and the IMU rows (copied into
@@ -523,8 +508,7 @@ class GraphedTrackStages:
     A replay dispatches no operation for a profiler to count: while
     tracing, each frame counts its stages' operations in
     ``track.graph_flops``, those of one eager run on copies of the
-    buffers, counted when the counters are read (``odometry/iekf.py:
-    flops_of``)."""
+    buffers, counted when the counters are read (``graphs.op_count``)."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -536,36 +520,32 @@ class GraphedTrackStages:
         (see ``predict_stage``) until the next call."""
         scan = (points, pmask, point_ts, imu_rows)
         leaves = [getattr(state, k) for k in TRACK_LEAVES]
-        key = tuple((x.shape, x.stride(), x.dtype, x.device) for x in (*scan, *leaves))
+        key = graphs.layout_key((*scan, *leaves))
         f = self.frames.get(key)
         if f is None:
             f = self.frames[key] = self._capture(scan, leaves)
-        for x, buf in zip(leaves, f.bufs.values()):
-            if x is not buf:
-                buf.copy_(x)
-        for k, x in zip(_SCAN, scan):
-            getattr(f, k).copy_(x)
+        graphs.fill(f.bufs.values(), leaves)
+        graphs.fill([getattr(f, k) for k in _SCAN], scan)
         f.crop.fill_(crop_max_range)
         f.imu_count.fill_(imu_count)
         f.fid.fill_(frame_id)
-        f.graphs[0].replay()
+        graphs.replay(f.graphs[0])
         return f
 
     def bookkeep(self, f: SimpleNamespace, trk):
         """Replay ``frame.bookkeep`` of the frame ``predict`` returned, after
         the tracker's ``trk`` (rot, pos, rest, P, ok, n_iter)."""
-        for buf, x in zip(f.trk, trk):
-            buf.copy_(x)
-        f.graphs[1].replay()
+        graphs.fill(f.trk, trk)
+        graphs.replay(f.graphs[1])
         obs.count("predict.graph_frames")
         obs.count("track.graph_flops", f.flops)
 
     def _capture(self, scan, leaves) -> SimpleNamespace:
         cfg = self.cfg
         dev = scan[0].device
-        state = {k: _like(x) for k, x in zip(TRACK_LEAVES, leaves)}
+        state = dict(zip(TRACK_LEAVES, graphs.buffers(leaves)))
         inputs = dict(
-            zip(_SCAN, [_like(x) for x in scan]), **state,
+            zip(_SCAN, graphs.buffers(scan)), **state,
             crop=torch.full((), cfg.max_range, dtype=torch.float32, device=dev),
             imu_count=torch.zeros((), dtype=torch.int64, device=dev),
             fid=torch.ones(1, dtype=torch.int64, device=dev),
@@ -575,42 +555,22 @@ class GraphedTrackStages:
         )
         f = SimpleNamespace(**inputs, bufs=state)
 
-        def predict():
-            predict_stage(cfg, f, True)
-
         def bookkeep():
             bookkeep_stage(cfg, f, True)
-            for k, buf in state.items():  # after the stage's last read of the state
-                if f.new[k] is not buf:
-                    buf.copy_(f.new[k])
+            # after the stage's last read of the state
+            graphs.fill(state.values(), [f.new[k] for k in state])
 
         with torch.cuda.device(dev):
-            # cuBLAS's per-stream workspaces cleared around each phase, as
-            # for the tracker's graph (odometry/iekf.py:_GraphedIterations)
-            torch._C._cuda_clearCublasWorkspaces()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                predict()
-                bookkeep()
-            torch.cuda.current_stream().wait_stream(side)
-            torch._C._cuda_clearCublasWorkspaces()
-            mem = torch.cuda.graph_pool_handle()
-            f.graphs = (_graph(predict, mem), _graph(bookkeep, mem))
-            torch._C._cuda_clearCublasWorkspaces()
+            f.graphs = graphs.Capture()([functools.partial(predict_stage, cfg, f, True),
+                                         bookkeep])
         f.new = state  # what the step reads after a replay
-        counted = []
 
-        def flops() -> int:
-            if not counted:
-                g = SimpleNamespace(**{k: v.clone() if isinstance(v, torch.Tensor)
-                                       else [t.clone() for t in v] for k, v in inputs.items()})
-                with torch.cuda.device(dev):
-                    counted.append(sum(iekf.flops_of(lambda: (
-                        predict_stage(cfg, g, True), bookkeep_stage(cfg, g, True))).values()))
-            return counted[0]
+        def on_copies():
+            g = SimpleNamespace(**{k: clone_state(v) for k, v in inputs.items()})
+            predict_stage(cfg, g, True)
+            bookkeep_stage(cfg, g, True)
 
-        f.flops = flops
+        f.flops = graphs.op_count(on_copies, dev)
         return f
 
 

@@ -252,6 +252,22 @@ def test_map_loop_rejects_what_the_kernel_cannot_take():
         ml.map_loop(*args, torch.tensor(2, device=dev), 20, LR, x["denom_inv"], x["eik_inv"], **KW)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,n", [("map_loop", 36), ("plan", 9)])
+def test_map_loop_module_refuses_a_wrong_argument_count(entry, n):
+    """The kernel's module entries (``csrc/map_loop.cu``) count their
+    arguments: one too few or too many raises ``TypeError`` before any
+    launch, as does a float where an int goes; the card is left as it was."""
+    from clid_slam_torch.ops import _build
+
+    _cuda()
+    fn = getattr(_build.load_module("map_loop"), entry)
+    for args in ([0] * (n - 1), [0] * (n + 1), [0.5] + [0] * (n - 1)):
+        with pytest.raises(TypeError):
+            fn(*args)
+    torch.cuda.synchronize()
+
+
 def _tiny_system(**overrides):
     """A small StreamingSlam on the card with its seeded synthetic sequence."""
     from clid_slam_torch.config import Config
@@ -1213,7 +1229,7 @@ def test_tracker_graph_counts_the_operations_its_replays_hide(option, monkeypatc
     what runs around the replays; with ``track.graph_flops`` added, the
     count is the profiler's count of the eager loop on the same inputs, and
     above it by no more than the autograd engine's sums of gradients, which
-    ``iekf.flops_of`` counts and the profiler does not (under 5 %)."""
+    ``graphs.flops_of`` counts and the profiler does not (under 5 %)."""
     from clid_slam_torch.odometry import iekf
     from clid_slam_torch.utils import observability as obs
 

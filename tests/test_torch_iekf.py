@@ -9,6 +9,8 @@ within 1e-4, the same iteration count). Last, the cached update's eager
 loop on CPU tensors at each exit rule (the card's tests hold its CUDA
 graph to the same loop)."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -16,8 +18,14 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from clid_slam_torch import graphs
 from clid_slam_torch.convert import mlp_from_numpy, neural_map_from_numpy
+from clid_slam_torch.mapping import pool as pl
+from clid_slam_torch.mapping import prep as prp
+from clid_slam_torch.models import local_map as lm
+from clid_slam_torch.models import neural_map as nm
 from clid_slam_torch.odometry import iekf as tie
+from clid_slam_torch.pipeline import streaming as sm
 from clid_slam_torch.utils import observability as obs
 from clid_slam_tpu.models import decoder as jdec
 from clid_slam_tpu.models import neural_map as jnm
@@ -323,7 +331,7 @@ def test_flops_of_counts_as_the_profiler_does(option):
     kw, inputs = _tracker_option(option, 5, "cpu")
     body = tie.make_cached_update_fn(**dict(kw, **TRACKER_EXITS["converged"]))
     got = []
-    counted = tie.flops_of(lambda: got.append(body.dense_update(*inputs)))
+    counted = graphs.flops_of(lambda: got.append(body.dense_update(*inputs)))
     with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
         want = body.dense_update(*inputs)
     obs.reset_counters()
@@ -343,9 +351,9 @@ def test_flops_of_counts_inside_a_traced_run():
     the counting mode runs them)."""
     body = tie.make_cached_update_fn(**dict(TRACKER_KW, **TRACKER_EXITS["converged"]))
     inputs = _tracker_inputs(5, "cpu")
-    alone = tie.flops_of(lambda: body.dense_update(*inputs))
+    alone = graphs.flops_of(lambda: body.dense_update(*inputs))
     with profile(activities=[ProfilerActivity.CPU], with_flops=True) as outer:
-        inside = tie.flops_of(lambda: body.dense_update(*inputs))
+        inside = graphs.flops_of(lambda: body.dense_update(*inputs))
     with profile(activities=[ProfilerActivity.CPU], with_flops=True) as plain:
         body.dense_update(*inputs)
     obs.reset_counters()
@@ -354,14 +362,51 @@ def test_flops_of_counts_inside_a_traced_run():
     assert all(outer[op] >= 2 * plain[op] for op in plain)
 
 
-def test_graph_buffers_keep_the_inputs_strides():
-    """The buffers a capture reads are copies of the first inputs with their
-    shapes and strides, strided views of the sharded tracker's payload
-    too, so the replays run the eager loop's kernels on its layouts."""
-    inputs = _payload_candidates(_tracker_inputs(3, "cpu", n=64))
-    bufs = tie._clone_inputs(inputs)
-    leaves, copies = tie._leaves(inputs), tie._leaves(bufs)
-    assert len(leaves) == len(copies) and not leaves[0].is_contiguous()
+def _tracker_leaves():
+    """The sharded tracker's: candidates handed over as strided views of
+    its exchanged payload."""
+    return tie._leaves(_payload_candidates(_tracker_inputs(3, "cpu", n=64)))
+
+
+def _upload_views():
+    """``GraphedTrackStages``': the scan and the IMU rows as the views of the
+    frame's upload that ``pack_adapter`` hands to the step."""
+    rng = np.random.default_rng(0)
+    pack = sm.pack_frame_buffers(64, 8, rng.normal(size=(50, 3)), rng.uniform(size=50),
+                                 rng.normal(size=(5, 7)), 3, 20.0, 10, 1.0, False)
+    args = sm.pack_adapter(lambda *a: a, 64, 8)(SimpleNamespace(rot=torch.eye(3)), pack)
+    return list(args[2:6])  # points, pmask, point_ts, imu_rows
+
+
+def _prep_leaves():
+    """``GraphedPrep``'s: the leaves of the map, the local map and the pool
+    that prep reads or writes."""
+    return prp.GraphedPrep._leaves(nm.init_map(64, 256, 8), lm.init_local_map(64, 256),
+                                   pl.init_pool(128, 32))
+
+
+GRAPH_INPUTS = {"tracker": _tracker_leaves, "track_stages": _upload_views,
+                "prep": _prep_leaves}
+
+
+@pytest.mark.parametrize("family", sorted(GRAPH_INPUTS))
+def test_graph_buffers_keep_the_inputs_strides(family):
+    """The buffers a capture reads (``graphs.buffers``) are copies of a
+    graph family's first inputs with their shapes and strides, strided
+    views of the sharded tracker's payload and of the frame's upload too,
+    so the replays run the eager kernels on their layouts; the copies read
+    the inputs' ``layout_key``. The tracker's copies go back into its
+    inputs' structure, candidates, decoder and the rest in place."""
+    leaves = GRAPH_INPUTS[family]()
+    copies = graphs.buffers(leaves)
+    assert len(copies) == len(leaves) > 1
+    assert family == "prep" or not all(x.is_contiguous() for x in leaves)
     for x, b in zip(leaves, copies):
         assert b.stride() == x.stride() and b.dtype == x.dtype and torch.equal(b, x)
         assert b.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()
+    assert graphs.layout_key(copies) == graphs.layout_key(leaves)
+    if family == "tracker":
+        inputs = _payload_candidates(_tracker_inputs(3, "cpu", n=64))
+        rebuilt = tie._rebuilt(inputs, copies)
+        assert [id(x) for x in tie._leaves(rebuilt)] == [id(x) for x in copies]
+        assert rebuilt[0][3] is None and len(rebuilt) == len(inputs)

@@ -114,6 +114,39 @@ def test_sharded_runtime_modules_are_the_ports_own():
         assert all("ReduceOp.MAX" in c for c in calls), (rel, calls)
 
 
+# the frame step's packages (tools/ keeps its own measurement code)
+FRAME_STEP_PACKAGES = ("odometry", "mapping", "models", "ops", "parallel", "pipeline")
+# what only clid_slam_torch/graphs.py names: the capture of a stage as CUDA graphs
+CAPTURE_NAMES = ("_cuda_clearCublasWorkspaces", "torch.cuda.CUDAGraph", "capture_begin",
+                 "graph_pool_handle")
+
+
+def test_graph_capture_and_kernel_binding_live_in_one_place():
+    """One module captures the frame step's stages as CUDA graphs
+    (``clid_slam_torch/graphs.py``): no other module of the frame step's
+    packages names its capture calls. One route binds the hand kernels
+    (``ops/_build.py:load_module``, the extension module a ``csrc/*.cu``
+    defines): no module under ``ops/`` imports ``ctypes``."""
+    root = os.path.join(REPO, "clid_slam_torch")
+    with open(os.path.join(root, "graphs.py")) as f:
+        src = f.read()
+    assert all(name in src for name in CAPTURE_NAMES)
+    named = []
+    for pkg in FRAME_STEP_PACKAGES:
+        for d, _, files in os.walk(os.path.join(root, pkg)):
+            for fn in files:
+                if not fn.endswith(".py"):
+                    continue
+                path = os.path.join(d, fn)
+                with open(path) as f:
+                    src = f.read()
+                rel = os.path.relpath(path, REPO)
+                named += [(rel, name) for name in CAPTURE_NAMES if name in src]
+                if pkg == "ops" and re.search(r"^\s*(import|from)\s+ctypes\b", src, re.M):
+                    named.append((rel, "ctypes"))
+    assert not named, named
+
+
 def test_entry_points_default_to_cuda(tmp_path):
     from clid_slam_torch import resolve_device
     from clid_slam_torch.parallel.distributed import initialize, run_sharded_slam
